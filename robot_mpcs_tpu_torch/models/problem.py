@@ -1,0 +1,328 @@
+"""MPC problem assembly: port of ``robot_mpcs_tpu.models.problem``.
+
+Mirrors the role of reference ``robotmpcs/models/mpcModel.py`` (and
+``diff_drive_mpc_model.py``): given a parsed setup, build
+
+* the kinematics + dimensions,
+* the inequality/objective component stacks (in config order — this fixes
+  the ``paramMap`` parameter ABI, see ``params.py``),
+* the two-family stage rows (``split_callbacks``) and the discrete dynamics
+  consumed by the solver,
+* the variable bounds (default box +-100 as in ``mpcModel.py:23-27``).
+
+Every stage function is batch-first: ``z (..., nz)`` and ``p (..., npar)``
+with the same leading dimensions. Not ported yet: the solver-artifact
+directory (``generate_solver`` / ``from_solver_dir``, with ``properties``
+and ``solver_name``), ``set_limits``, and the canonical per-component
+``stage_objective`` / ``stage_inequalities`` the JAX planner evaluates.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Callable, List, Optional
+
+import numpy as np
+import torch
+
+from robot_mpcs_tpu_torch.assets import builtin_model
+from robot_mpcs_tpu_torch.config import Setup, SolverConfiguration
+from robot_mpcs_tpu_torch.models.components import FkEval, ModelContext, cat_rows
+from robot_mpcs_tpu_torch.models.dimensions import ProblemDimensions
+from robot_mpcs_tpu_torch.models.dynamics import (
+    constant_dynamics_jacobians,
+    make_discrete_dynamics,
+)
+from robot_mpcs_tpu_torch.models.fk import RobotKinematics
+from robot_mpcs_tpu_torch.models.inequalities import INEQUALITY_REGISTRY
+from robot_mpcs_tpu_torch.models.objectives import OBJECTIVE_REGISTRY, ConstraintAvoidance
+from robot_mpcs_tpu_torch.models.params import ParamMap
+from robot_mpcs_tpu_torch.models.urdf import UrdfModel, load_urdf
+
+
+class MpcProblem:
+    """A fully-assembled MPC problem for one robot/config."""
+
+    def __init__(self, setup: Setup, urdf_model: Optional[UrdfModel] = None):
+        self.setup = setup
+        self.mpc = setup.mpc
+        self.robot = setup.robot
+        if urdf_model is None:
+            urdf_model = self._resolve_urdf(setup.robot.urdf_file)
+        self.urdf_model = urdf_model
+        self.kin = RobotKinematics(
+            urdf_model, self.robot.root_link, self.robot.end_link, self.robot.base_type
+        )
+        self.dims = ProblemDimensions.build(
+            n_arm=self.kin.n_arm,
+            base_type=self.robot.base_type,
+            N=self.mpc.time_horizon,
+            slack=self.mpc.slack,
+            n_obst=self.mpc.number_obstacles,
+        )
+        if self.dims.n != self.mpc.n:
+            raise ValueError(
+                f"config mpc.n = {self.mpc.n} does not match URDF-derived n = {self.dims.n}"
+            )
+        self.ctx = ModelContext(self.dims, self.kin, self.mpc, self.robot)
+
+        # --- components + parameter registration (order = ABI) ------------
+        # Reference order (mpcModel.py:29-36 + ObjectiveManager.py:14):
+        # constraints (config order) -> "wu" -> objectives (config order).
+        self.param_map = ParamMap()
+        self.ineq_components = []
+        for name in self.mpc.constraints:
+            comp = INEQUALITY_REGISTRY[name](self.ctx)
+            comp.register_params(self.param_map)
+            self.ineq_components.append(comp)
+        self.param_map.register("wu", self.dims.nu)
+        if self.mpc.slack:
+            # ws is read by the objective assembly when ns > 0
+            # (ObjectiveManager.py:38-41); registered here since the modern
+            # objective set never registers it (reference gap).
+            self.param_map.register("ws", 1)
+        self.obj_components = []
+        for name in self.mpc.objectives:
+            cls = OBJECTIVE_REGISTRY[name]
+            if cls is ConstraintAvoidance:
+                comp = cls(self.ctx, self.ineq_components)
+            else:
+                comp = cls(self.ctx)
+            comp.register_params(self.param_map)
+            self.obj_components.append(comp)
+
+        self.n_ineq = sum(c.n_ineq for c in self.ineq_components)
+
+        # --- bounds (mpcModel.py:23-27, 91-104) ----------------------------
+        self.limits = {
+            "x": {"low": np.full(self.dims.nx, -100.0), "high": np.full(self.dims.nx, 100.0)},
+            "u": {"low": np.full(self.dims.nu, -100.0), "high": np.full(self.dims.nu, 100.0)},
+            "s": {"low": np.zeros(1), "high": np.full(1, np.inf)},
+        }
+
+        self.dt = self.mpc.time_step
+        self.dynamics = make_discrete_dynamics(
+            self.dims,
+            self.dt,
+            integrator=setup.solver.integrator,
+            substeps=setup.solver.integrator_substeps,
+        )
+
+    @staticmethod
+    def _resolve_urdf(urdf_file: str) -> UrdfModel:
+        """Load a URDF path, or fall back to a builtin robot by stem name."""
+        if os.path.exists(urdf_file):
+            return load_urdf(urdf_file)
+        stem = os.path.splitext(os.path.basename(urdf_file))[0]
+        for candidate in (stem, stem.replace("_fk", "")):
+            try:
+                return builtin_model(candidate)
+            except KeyError:
+                pass
+        raise FileNotFoundError(f"URDF {urdf_file!r} not found and not a builtin robot")
+
+    @property
+    def npar(self) -> int:
+        return self.param_map.npar
+
+    # ----------------------------------------------------- solver wiring
+
+    def bound_rows(self) -> List:
+        """Static list of finite bound rows folded into the AL constraint
+        stack: (index into z, sign, bound). Mirrors the lb/ub stacking of
+        ``mpcModel.py:91-104``; infinite bounds are dropped."""
+        dims = self.dims
+        lb = np.concatenate(
+            [self.limits["x"]["low"]]
+            + ([self.limits["s"]["low"]] if dims.ns else [])
+            + [self.limits["u"]["low"]]
+        )
+        ub = np.concatenate(
+            [self.limits["x"]["high"]]
+            + ([self.limits["s"]["high"]] if dims.ns else [])
+            + [self.limits["u"]["high"]]
+        )
+        rows = []
+        for i in range(dims.nz):
+            if np.isfinite(lb[i]):
+                rows.append((i, +1.0, float(lb[i])))  # z_i - lb >= 0
+            if np.isfinite(ub[i]):
+                rows.append((i, -1.0, float(ub[i])))  # ub - z_i >= 0
+        return rows
+
+    @property
+    def n_con(self) -> int:
+        """Total AL constraint rows per stage (module ineqs + bound rows)."""
+        return self.n_ineq + len(self.bound_rows())
+
+    @property
+    def n_res(self) -> int:
+        """Residual rows per stage: objective residuals + control penalty
+        rows (wu) + slack penalty row (ws)."""
+        return sum(c.n_res for c in self.obj_components) + self.dims.nu + self.dims.ns
+
+    @property
+    def n_bar(self) -> int:
+        """Barrier rows per stage (inverse-clearance repulsion terms)."""
+        return sum(c.n_bar for c in self.obj_components)
+
+    # ------------------------------------------------ split row families
+
+    def split_callbacks(self):
+        """Build the two-family structured stage callbacks for the solver
+        (``problem.py:227-341`` of the JAX package).
+
+        Rows are partitioned by what they depend on:
+
+        * **q family** — rows that reach z only through the configuration
+          ``q = z[..., :n]`` (forward kinematics): goal residuals, obstacle /
+          self-collision / halfplane constraint rows and their barriers.
+          ``q_rows(q, p)`` returns them with their analytic q-Jacobian
+          ``(..., R_q, n)``, from one FK walk over every link they read.
+        * **affine family** — rows affine in z with a *constant* Jacobian
+          (limits, bounds, control/slack penalty rows, velocity damping).
+          Their Jacobian ``S_aff`` is computed once here at build time.
+
+        Constraint-row order (the multiplier ABI) is ``[q-family module rows
+        in config order; affine module rows in config order; bound rows]``.
+        """
+        dims = self.dims
+        pm = self.param_map
+        rows = self.bound_rows()
+        b_idx = np.array([r[0] for r in rows], dtype=np.int64)
+        b_sign = np.array([r[1] for r in rows], dtype=np.float32)
+        b_bnd = np.array([r[2] for r in rows], dtype=np.float32)
+        consts = {}
+
+        def bound_consts(like):
+            key = (like.dtype, like.device)
+            if key not in consts:
+                consts[key] = (
+                    torch.as_tensor(b_idx, device=like.device),
+                    torch.as_tensor(b_sign, dtype=like.dtype, device=like.device),
+                    torch.as_tensor(b_bnd, dtype=like.dtype, device=like.device),
+                )
+            return consts[key]
+
+        ineq_q = [c for c in self.ineq_components if c.q_dependent]
+        ineq_aff = [c for c in self.ineq_components if not c.q_dependent]
+        n_con_q = sum(c.n_ineq for c in ineq_q)
+        n_con_aff = sum(c.n_ineq for c in ineq_aff) + len(rows)
+        n_res_q = sum(c.n_res_q for c in self.obj_components)
+        n_res_aff = (
+            sum(c.n_res_aff for c in self.obj_components) + dims.nu + dims.ns
+        )
+        n_bar_q = sum(c.n_bar_q for c in self.obj_components)
+        n_bar_aff = sum(c.n_bar_aff for c in self.obj_components)
+        fk_links = [l for c in self.obj_components + ineq_q for l in c.fk_links()]
+
+        def q_rows(q, p, jac: bool = True):
+            """[res_q; bar_q; con_q] — all FK-dependent rows ``(..., R_q)``
+            and, with ``jac``, their q-Jacobian ``(..., R_q, n)`` (else None).
+
+            Constraint rows here are UNSHIFTED; when ns > 0 the solver adds
+            the slack variable to them (constant unit Jacobian column)."""
+            fk = FkEval(self.kin, q, fk_links, jac)
+            res = [c.residuals_q(fk, p, pm) for c in self.obj_components]
+            bar = [c.barriers_q(fk, p, pm) for c in self.obj_components]
+            con = [c.eval_constraint_q(fk, p, pm) for c in ineq_q]
+            return cat_rows(res + bar + con, fk)
+
+        def aff_rows(z, p):
+            """[res_aff; bar_aff; con_aff] ``(..., R_aff)`` — rows affine in z
+            (slack shift of module constraint rows included; bound rows are
+            not shifted, mirroring the reference's lb/ub handling,
+            mpcModel.py:91-104)."""
+            res = [c.residuals_aff(z, p, pm) for c in self.obj_components]
+            res.append(z[..., dims.nx + dims.ns :])  # u rows (weight wu)
+            if dims.ns:
+                res.append(z[..., dims.nx : dims.nx + dims.ns])  # slack row (ws)
+            bar = [c.barriers_aff(z, p, pm) for c in self.obj_components]
+            con = [c.eval_constraint(z, p, pm) for c in ineq_aff]
+            if dims.ns and con:
+                s = z[..., dims.nx, None]
+                con = [c + s for c in con]
+            if len(rows):
+                idx, sign, bnd = bound_consts(z)
+                con.append(sign * (z[..., idx] - bnd))
+            parts = res + bar + con
+            return torch.cat(parts, -1) if parts else z.new_zeros(z.shape[:-1] + (0,))
+
+        def weights_split(p):
+            """(w_res_q, w_bar_q, w_res_aff, w_bar_aff), each ``(..., k)``;
+            weight vectors depend on p only."""
+            ws = [c.weights(p, pm) for c in self.obj_components]
+            wrq, wbq, wra, wba = ([w[i] for w in ws] for i in range(4))
+            wra = list(wra) + [pm.get(p, "wu")]
+            if dims.ns:
+                wra.append(pm.get(p, "ws"))
+            cat = lambda xs: (
+                torch.cat(list(xs), -1) if xs else p.new_zeros(p.shape[:-1] + (0,))
+            )
+            return cat(wrq), cat(wbq), cat(wra), cat(wba)
+
+        # constant affine Jacobian, computed once in f32 on the CPU (p enters
+        # the rows only as offsets)
+        p0 = torch.zeros((self.npar,), dtype=torch.float32)
+        S_aff = torch.func.jacfwd(lambda z: aff_rows(z, p0))(
+            torch.zeros((dims.nz,), dtype=torch.float32)
+        ).numpy()
+
+        return {
+            "q_rows": q_rows,
+            "aff_rows": aff_rows,
+            "weights_split": weights_split,
+            "S_aff": S_aff,
+            "q_seg": (n_res_q, n_bar_q, n_con_q),
+            "aff_seg": (n_res_aff, n_bar_aff, n_con_aff),
+            "n_q": dims.n,
+        }
+
+    def solver_callbacks(self):
+        """StageFunctions in the solver's batched (x, w, p) convention with
+        w = [s, u], the split-row layout, and (w_lb, w_ub) clamp bounds. The
+        port carries only the two-family split form (``split_callbacks``);
+        the JAX package's stacked ``values``/``weights`` and exact-Hessian
+        paths serve custom problems and are not ported."""
+        from robot_mpcs_tpu_torch.solver.al_ilqr import StageFunctions
+
+        dims = self.dims
+        split = self.split_callbacks()
+        w_lb = np.concatenate(
+            ([self.limits["s"]["low"]] if dims.ns else []) + [self.limits["u"]["low"]]
+        )
+        w_ub = np.concatenate(
+            ([self.limits["s"]["high"]] if dims.ns else []) + [self.limits["u"]["high"]]
+        )
+        stage = StageFunctions(
+            dynamics=self.dynamics,
+            dyn_jac=constant_dynamics_jacobians(dims, self.dynamics),
+            q_rows=split["q_rows"],
+            aff_rows=split["aff_rows"],
+            weights_split=split["weights_split"],
+        )
+        return stage, split, w_lb.astype(np.float32), w_ub.astype(np.float32)
+
+    def build_solver(
+        self, cfg: Optional[SolverConfiguration] = None, device=None
+    ) -> Callable:
+        """Build the batched solve function for this problem on ``device``."""
+        from robot_mpcs_tpu_torch.solver.al_ilqr import build_solver
+
+        stage, split, w_lb, w_ub = self.solver_callbacks()
+        return build_solver(
+            stage,
+            nx=self.dims.nx,
+            ns=self.dims.ns,
+            nu=self.dims.nu,
+            N=self.dims.N,
+            n_con=self.n_con,
+            w_lb=w_lb,
+            w_ub=w_ub,
+            cfg=cfg or self.setup.solver,
+            n_q=split["n_q"],
+            q_seg=split["q_seg"],
+            aff_seg=split["aff_seg"],
+            S_aff=split["S_aff"],
+            device=device,
+        )

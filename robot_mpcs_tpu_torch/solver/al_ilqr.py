@@ -1,0 +1,451 @@
+"""Batched augmented-Lagrangian iLQR, batch-first (port of
+``robot_mpcs_tpu.solver.al_ilqr``, the two-family split path).
+
+This replaces the ForcesPro-generated interior-point C solver the reference
+drives (reference ``robotmpcs/models/mpcModel.py:74-129`` builds the problem,
+``robotmpcs/planner/mpcPlanner.py:262`` calls ``solver.solve``):
+
+* **Equality structure (stage dynamics)** is eliminated by a Riccati backward
+  sweep over the horizon: the structured holonomic sweep of
+  ``ops/riccati_packed.py`` (the CUDA kernel on the card, its plain version
+  on the CPU).
+* **Inequalities + variable bounds** are handled by a PHR augmented
+  Lagrangian: outer iterations update multipliers and a per-lane penalty;
+  the inner iLQR minimizes the AL objective.
+* **Gauss-Newton expansion** in two row families (``MpcProblem.
+  split_callbacks``): FK-dependent rows with their analytic q-Jacobian, and
+  affine rows with a constant build-time Jacobian ``S_aff``. The JAX
+  package's scalarized ``custom_vmap`` assembly rule exists only because of
+  XLA; here the assembly is batched ``(B, N, ·)`` matrix products.
+* **Batching and early exit**: every tensor carries the scenario batch
+  first. Each JAX ``lax.while_loop`` (inner iLQR, outer AL, line search)
+  becomes a Python ``while`` over a per-lane ``active`` mask that ends when
+  no lane is active or every lane hit its cap. A lane that is done is frozen
+  with ``torch.where`` exactly as JAX's vmapped loop freezes it, so each
+  lane's result does not depend on which other lanes share its batch.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from robot_mpcs_tpu_torch.config import SolverConfiguration
+from robot_mpcs_tpu_torch.models.components import BARRIER_EPS
+from robot_mpcs_tpu_torch.ops.riccati_packed import (
+    detect_structure,
+    riccati_backward_packed,
+)
+from robot_mpcs_tpu_torch.solver.types import SolveResult
+
+
+class StageFunctions(NamedTuple):
+    """Batched per-stage problem callbacks in the (x, w, p) convention, where
+    ``w = [s, u]`` stacks slack + controls and every argument carries
+    leading ``(B, N)`` (or any) batch dimensions.
+
+    ``q_rows(q, p, jac)`` returns the FK-dependent ``[res; bar; con]`` rows
+    and their q-Jacobian, ``aff_rows(v, p)`` the affine rows, and
+    ``weights_split(p)`` the four weight vectors (see
+    ``MpcProblem.split_callbacks``).
+    """
+
+    dynamics: Callable  # F(x, u) -> x_next
+    dyn_jac: Union[None, Tuple]  # (A, B) build-time constants, or None
+    q_rows: Callable
+    aff_rows: Callable
+    weights_split: Callable
+
+
+def _al_penalty(c: torch.Tensor, lam: torch.Tensor, mu: torch.Tensor) -> torch.Tensor:
+    """PHR penalty for c >= 0: (1/2mu) * (max(0, lam - mu c)^2 - lam^2),
+    summed over the last axis; ``mu`` broadcasts against ``c[..., 0]``."""
+    active = torch.clamp(lam - mu[..., None] * c, min=0.0)
+    return (0.5 / mu) * torch.sum(active * active - lam * lam, dim=-1)
+
+
+def build_solver(
+    stage: StageFunctions,
+    *,
+    nx: int,
+    ns: int,
+    nu: int,
+    N: int,
+    n_con: int,
+    w_lb,
+    w_ub,
+    cfg: Optional[SolverConfiguration] = None,
+    n_q: int = 0,
+    q_seg: Tuple[int, int, int],
+    aff_seg: Tuple[int, int, int],
+    S_aff,
+    device=None,
+):
+    """Build ``solve(xinit, params, z0, lam0) -> SolveResult`` for a batch:
+    ``xinit (B, nx)``, ``params (B, N, npar)``, ``z0 (B, N, nx+ns+nu)`` (its
+    ``[s, u]`` tail seeds the controls), ``lam0 (B, N, n_con)`` (multiplier
+    warm start). Tensors are moved to ``device`` (default: the CPU).
+    """
+    cfg = cfg or SolverConfiguration()
+    dev = torch.device(device) if device is not None else torch.device("cpu")
+    nw = ns + nu
+    nv = nx + nw
+    fdev = dict(dtype=torch.float32, device=dev)
+
+    if cfg.riccati_backend == "scan":
+        raise NotImplementedError(
+            "riccati_backend='scan' (the JAX package's stage scan, al_ilqr.py:485-535) "
+            "is not ported yet: it comes with riccati_backward_batched in the next slice"
+        )
+    packed = None
+    if isinstance(stage.dyn_jac, tuple):
+        packed = detect_structure(
+            np.asarray(stage.dyn_jac[0]),
+            np.concatenate(
+                [np.zeros((nx, ns)), np.asarray(stage.dyn_jac[1], np.float64)], axis=1
+            ),
+            nx=nx,
+            ns=ns,
+        )
+    if packed is None:
+        raise NotImplementedError(
+            "dynamics without the holonomic block structure need the general "
+            "Riccati sweep (riccati_backward_batched), which is the next slice of the port"
+        )
+    a_s, b1_s, b2_s = packed
+
+    qr, qb, qc = q_seg
+    ar, ab, ac = aff_seg
+    n_qrows = qr + qb + qc
+    if n_con != qc + ac:
+        raise ValueError(f"n_con {n_con} != q_con {qc} + aff_con {ac}")
+    S_np = np.asarray(S_aff, np.float32)
+    S = torch.as_tensor(S_np, **fdev)  # (n_arows, nv)
+    S_outer = torch.as_tensor(
+        np.einsum("ki,kj->kij", S_np, S_np).reshape(ar + ab + ac, nv * nv), **fdev
+    )
+    w_lb = torch.as_tensor(np.broadcast_to(np.asarray(w_lb, np.float32), (nw,)).copy(), **fdev)
+    w_ub = torch.as_tensor(np.broadcast_to(np.asarray(w_ub, np.float32), (nw,)).copy(), **fdev)
+    upper = torch.ones((nv, nv), dtype=torch.bool, device=dev).triu()
+
+    # ---------------- pinned stage-0 constraint rows ------------------------
+    # x[0] = xinit is DATA, not a decision variable, so a stage-0 constraint
+    # row with no dependence on [s, u] is a constant no solver can change;
+    # folding it into the AL penalty would only ratchet the penalty to
+    # penalty_max. Such rows are masked at stage 0 by an additive offset
+    # (al_ilqr.py:406-437 of the JAX package).
+    pinned = np.zeros((n_con,), bool)
+    if ns == 0:
+        # q-family con rows reach z only through q ⊆ x (a slack shift makes
+        # them live again)
+        pinned[:qc] = True
+    # affine con rows: pinned iff their constant Jacobian has no [s, u] column
+    pinned[qc:] = np.abs(S_np[ar + ab :, nx:]).sum(axis=1) == 0.0
+    C_OFF = torch.zeros((N, n_con), **fdev)
+    if pinned.any():
+        C_OFF[0, torch.as_tensor(np.where(pinned)[0], device=dev)] = 1e6
+
+    # ---------------- stage-level pieces (leading dims (B, N)) --------------
+
+    def eval_families(X, W, P, jac: bool):
+        """(vq, Jq | None, va): q-family rows (+ q-Jacobian), affine rows."""
+        vq, Jq = stage.q_rows(X[..., :n_q], P, jac)
+        va = stage.aff_rows(torch.cat([X, W], -1), P)
+        if ns and qc:
+            # slack-shift the q-family module constraint rows (the affine
+            # family shifts its own rows inside aff_rows)
+            vq = torch.cat([vq[..., : qr + qb], vq[..., qr + qb :] + W[..., :1]], -1)
+        return vq, Jq, va
+
+    def family_cost(vq, va, P):
+        """(true stage cost (B, N), stacked constraint rows [con_q; con_aff])."""
+        wrq, wbq, wra, wba = stage.weights_split(P)
+        total = torch.sum(wrq * vq[..., :qr] ** 2, -1) + torch.sum(wra * va[..., :ar] ** 2, -1)
+        total = total + torch.sum(wbq / torch.clamp(vq[..., qr : qr + qb], min=BARRIER_EPS), -1)
+        total = total + torch.sum(wba / torch.clamp(va[..., ar : ar + ab], min=BARRIER_EPS), -1)
+        return total, torch.cat([vq[..., qr + qb :], va[..., ar + ab :]], -1)
+
+    def true_cost(X, W, P):
+        vq, _, va = eval_families(X, W, P, jac=False)
+        return family_cost(vq, va, P)[0]
+
+    def stage_ineq(X, W, P):
+        vq, _, va = eval_families(X, W, P, jac=False)
+        return torch.cat([vq[..., qr + qb :], va[..., ar + ab :]], -1)
+
+    def al_stage_cost(X, W, P, lam, mu):
+        """AL merit per stage, (B, N); ``mu`` is the per-lane penalty (B,)."""
+        vq, _, va = eval_families(X, W, P, jac=False)
+        cost, c = family_cost(vq, va, P)
+        return cost + _al_penalty(c + C_OFF, lam, mu[:, None])
+
+    def _coefs(r, wr, b, wb, c, lam_seg, mu3):
+        """Per-row (gradient, curvature) scalars of the AL model: residual
+        rows w r^2, barrier rows w / b, constraint rows PHR."""
+        act = torch.clamp(lam_seg - mu3 * c, min=0.0)
+        # barrier rows are RAW clearances; inside the BARRIER_EPS clamp the
+        # barrier contributes zero gradient/curvature (the AL constraint
+        # supplies the restoring force there)
+        live = b > BARRIER_EPS
+        bs = torch.clamp(b, min=BARRIER_EPS)
+        g = torch.cat([2.0 * wr * r, torch.where(live, -wb / (bs * bs), 0.0), -act], -1)
+        h = torch.cat(
+            [
+                (2.0 * wr).expand_as(r),
+                torch.where(live, torch.clamp(2.0 * wb / (bs * bs * bs), min=0.0), 0.0),
+                mu3 * (act > 0),
+            ],
+            -1,
+        )
+        return g, h
+
+    def stage_expansion_blocks(X, W, P, lam, mu):
+        """Riccati blocks (lx, lw, lxx, lxw, lww) of the Gauss-Newton AL
+        model at every stage, each contiguous ``(B, N, ...)``."""
+        vq, Jq, va = eval_families(X, W, P, jac=True)
+        cq = vq[..., qr + qb :] + C_OFF[:, :qc]
+        ca = va[..., ar + ab :] + C_OFF[:, qc:]
+        wrq, wbq, wra, wba = stage.weights_split(P)
+        mu3 = mu[:, None, None]
+        ga, ha = _coefs(va[..., :ar], wra, va[..., ar : ar + ab], wba, ca, lam[..., qc:], mu3)
+        g = ga @ S  # (B, N, nv)
+        H = (ha @ S_outer).reshape(ha.shape[:-1] + (nv, nv))
+        if n_qrows:
+            gq, hq = _coefs(
+                vq[..., :qr], wrq, vq[..., qr : qr + qb], wbq, cq, lam[..., :qc], mu3
+            )
+            g[..., :n_q] += (gq.unsqueeze(-2) @ Jq).squeeze(-2)
+            H[..., :n_q, :n_q] += (Jq * hq[..., None]).transpose(-1, -2) @ Jq
+            if ns and qc:
+                s_col = nx
+                gq_c, hq_c, Jq_c = gq[..., qr + qb :], hq[..., qr + qb :], Jq[..., qr + qb :, :]
+                cross = (hq_c.unsqueeze(-2) @ Jq_c).squeeze(-2)
+                g[..., s_col] += torch.sum(gq_c, -1)
+                H[..., :n_q, s_col] += cross
+                H[..., s_col, :n_q] += cross
+                H[..., s_col, s_col] += torch.sum(hq_c, -1)
+        # mirror the upper triangle (the JAX assembly computes j >= i only)
+        H = torch.where(upper, H, H.transpose(-1, -2))
+        return (
+            g[..., :nx].contiguous(),
+            g[..., nx:].contiguous(),
+            H[..., :nx, :nx].contiguous(),
+            H[..., :nx, nx:].contiguous(),
+            H[..., nx:, nx:].contiguous(),
+        )
+
+    def backward(lx, lw, lxx, lxw, lww, reg):
+        """Structured Riccati sweep; the stage N-1 A = B = 0 convention is the
+        kernel's zero terminal value function."""
+        return riccati_backward_packed(
+            lx, lw, lxx, lxw, lww, reg,
+            N=N, nx=nx, nw=nw, ns=ns, a=a_s, b1=b1_s, b2=b2_s,
+        )
+
+    def rollout(xinit, W):
+        """Open-loop rollout: X[:, 0] = xinit, X[:, k+1] = F(X[:, k], U[:, k])."""
+        xs = [xinit]
+        for k in range(N - 1):
+            xs.append(stage.dynamics(xs[-1], W[:, k, ns:]))
+        return torch.stack(xs, 1)
+
+    def forward(xinit, X_ref, W_ref, k_ff, K, P, lam, mu, alpha):
+        """Closed-loop rollout with step ``alpha`` (B,); returns (X, W, the
+        PER-STAGE merit (B, N)). The line search accepts on the sum of
+        per-stage DIFFERENCES, whose f32 noise floor is ~N x lower than
+        comparing two accumulated totals (al_ilqr.py:650-658)."""
+        x = xinit
+        xs, ws = [], []
+        for k in range(N):
+            dx = (x - X_ref[:, k]).unsqueeze(-1)
+            w = W_ref[:, k] + alpha[:, None] * k_ff[:, k] + (K[:, k] @ dx).squeeze(-1)
+            w = torch.clamp(w, w_lb, w_ub)
+            xs.append(x)
+            ws.append(w)
+            x = stage.dynamics(x, w[:, ns:])
+        X, W = torch.stack(xs, 1), torch.stack(ws, 1)
+        return X, W, al_stage_cost(X, W, P, lam, mu)
+
+    def where(mask, new, old):
+        """Per-lane select: ``mask`` (B,) broadcast over trailing dims."""
+        return torch.where(mask.reshape(mask.shape + (1,) * (new.dim() - 1)), new, old)
+
+    # ---------------- inner iLQR loop --------------------------------------
+
+    def ilqr(xinit, X, W, P, lam, mu, frozen, gn0):
+        """Inner iLQR on the AL objective (al_ilqr.py:662-835). Lanes in
+        ``frozen`` enter done and keep ``gn0`` as their stationarity measure.
+        Returns (X, W, grad_norm, n_used)."""
+        Bsz = X.shape[0]
+        cost_cur = al_stage_cost(X, W, P, lam, mu)
+        reg = torch.full((Bsz,), cfg.reg_initial, **fdev)
+        done = frozen.clone()
+        grad_norm = gn0.clone()
+        n_used = torch.zeros((Bsz,), dtype=torch.int32, device=dev)
+        it = torch.zeros((Bsz,), dtype=torch.int32, device=dev)
+        while True:
+            active = (it < cfg.max_ilqr_iterations) & ~done
+            if not bool(active.any()):
+                break
+            lx, lw, lxx, lxw, lww = stage_expansion_blocks(X, W, P, lam, mu)
+            k_ff, K, failed = backward(lx, lw, lxx, lxw, lww, reg)
+            gn_step = torch.amax(torch.abs(k_ff), dim=(1, 2))
+            # tiny Newton step: no search needed (the lane is declared done
+            # below); near-stationary: probe only alpha = 1
+            tiny_step = gn_step < cfg.tol_gradient
+            near_stat = gn_step < cfg.tol_stationarity
+            max_ls = torch.where(near_stat, 1, cfg.line_search_steps)
+
+            # Backtracking line search with early exit (al_ilqr.py:720-755):
+            # largest alpha first, each lane stops at its first improvement.
+            # Lanes that are done, failed, tiny-stepped (or inactive here)
+            # start "accepted" and never search.
+            skip_ls = done | failed | tiny_step | ~active
+            accepted = skip_ls.clone()
+            X_ls, W_ls, cost_ls = X, W, cost_cur
+            ls_it = torch.zeros((Bsz,), dtype=torch.int32, device=dev)
+            while True:
+                searching = (ls_it < max_ls) & ~accepted
+                if not bool(searching.any()):
+                    break
+                alpha = torch.pow(cfg.line_search_decay, ls_it.to(torch.float32))
+                X_c, W_c, cost_c = forward(xinit, X, W, k_ff, K, P, lam, mu, alpha)
+                delta = torch.sum(cost_c - cost_cur, -1)
+                better = searching & torch.isfinite(cost_c).all(-1) & (delta < -1e-9)
+                X_ls = where(better, X_c, X_ls)
+                W_ls = where(better, W_c, W_ls)
+                cost_ls = where(better, cost_c, cost_ls)
+                accepted = accepted | better
+                ls_it = ls_it + searching.to(torch.int32)
+            improved = accepted & ~skip_ls
+            accept = improved & ~failed
+
+            take = accept & ~done
+            X_new = where(take, X_ls, X)
+            W_new = where(take, W_ls, W)
+            cost_new = where(take, cost_ls, cost_cur)
+            # escalate reg only on a genuine failure (bad factorization or a
+            # searched-and-rejected step); a tiny step at HIGH reg decays reg
+            # toward reg_converged_max instead of livelocking
+            escalate = failed | (~improved & ~tiny_step)
+            decay_probe = tiny_step & ~failed & (reg > cfg.reg_converged_max)
+            reg_step = torch.where(
+                accept,
+                torch.clamp(reg * 0.5, min=cfg.reg_min),
+                torch.where(
+                    escalate,
+                    torch.clamp(reg * 10.0, max=cfg.reg_max),
+                    torch.where(decay_probe, torch.clamp(reg * 0.1, min=cfg.reg_min), reg),
+                ),
+            )
+            reg_new = torch.where(done, reg, reg_step)
+            gn = torch.where(done, grad_norm, gn_step)
+            # two-tier stationarity exit (al_ilqr.py:791-813): (a) the Newton
+            # step is below tol_gradient; (b) no improvement was found and
+            # the step is below tol_stationarity (beneath the f32 merit
+            # noise floor). Guarded by an honest factorization and reg.
+            done_new = done | (
+                ~failed
+                & (reg <= cfg.reg_converged_max)
+                & ((gn_step < cfg.tol_gradient) | (~improved & (gn_step < cfg.tol_stationarity)))
+            )
+            n_used_new = n_used + (~done).to(torch.int32)
+
+            X = where(active, X_new, X)
+            W = where(active, W_new, W)
+            cost_cur = where(active, cost_new, cost_cur)
+            reg = torch.where(active, reg_new, reg)
+            done = torch.where(active, done_new, done)
+            grad_norm = torch.where(active, gn, grad_norm)
+            n_used = torch.where(active, n_used_new, n_used)
+            it = it + active.to(torch.int32)
+        return X, W, grad_norm, n_used
+
+    # ---------------- outer AL loop -----------------------------------------
+
+    def solve(xinit, params, z0, lam0=None) -> SolveResult:
+        xinit = torch.as_tensor(xinit, **fdev)
+        P = torch.as_tensor(params, **fdev)
+        z0 = torch.as_tensor(z0, **fdev)
+        Bsz = xinit.shape[0]
+        W = torch.clamp(z0[..., nx:], w_lb, w_ub)
+        X = rollout(xinit, W)
+        lam = (
+            torch.zeros((Bsz, N, n_con), **fdev)
+            if lam0 is None
+            else torch.as_tensor(lam0, **fdev)
+        )
+        mu = torch.full((Bsz,), cfg.penalty_initial, **fdev)
+        grad_norm = torch.full((Bsz,), float("inf"), **fdev)
+        n_inner = torch.zeros((Bsz,), dtype=torch.int32, device=dev)
+        viol = torch.full((Bsz,), float("inf"), **fdev)
+        finished = torch.zeros((Bsz,), dtype=torch.bool, device=dev)
+        it = torch.zeros((Bsz,), dtype=torch.int32, device=dev)
+        # early exit once feasible + stationary (al_ilqr.py:839-905)
+        while True:
+            active = (it < cfg.max_al_iterations) & ~finished
+            if not bool(active.any()):
+                break
+            # lanes outside the loop enter the inner loop frozen: they cost
+            # no trips and keep their state
+            X2, W2, gn, used = ilqr(xinit, X, W, P, lam, mu, ~active, grad_norm)
+            # pinned stage-0 rows are offset out of both the multiplier
+            # update and the feasibility measure
+            C = stage_ineq(X2, W2, P) + C_OFF
+            viol2 = (
+                torch.amax(torch.clamp(-C, min=0.0), dim=(1, 2))
+                if n_con > 0
+                else torch.zeros((Bsz,), **fdev)
+            )
+            lam2 = torch.clamp(lam - mu[:, None, None] * C, min=0.0)
+            mu2 = torch.where(
+                viol2 > cfg.tol_constraint,
+                torch.clamp(mu * cfg.penalty_scale, max=cfg.penalty_max),
+                mu,
+            )
+            finished2 = (viol2 <= cfg.tol_constraint) & (gn <= cfg.tol_stationarity)
+            X = where(active, X2, X)
+            W = where(active, W2, W)
+            lam = where(active, lam2, lam)
+            mu = torch.where(active, mu2, mu)
+            grad_norm = torch.where(active, gn, grad_norm)
+            n_inner = n_inner + torch.where(active, used, 0)
+            viol = torch.where(active, viol2, viol)
+            finished = finished | (active & finished2)
+            it = it + active.to(torch.int32)
+
+        cost = torch.sum(true_cost(X, W, P), -1)
+        z = torch.cat([X, W], -1)
+        # raw (unmasked) stage-0 violation: pinned rows are excluded from the
+        # solver's feasibility measure, but safety monitoring must still see
+        # an in-collision start (mpcPlanner.py:263)
+        if n_con > 0 and bool(pinned.any()):
+            c0_raw = stage_ineq(X[:, :1], W[:, :1], P[:, :1])
+            violation0_raw = torch.amax(torch.clamp(-c0_raw, min=0.0), dim=(1, 2))
+        else:
+            violation0_raw = torch.zeros((Bsz,), **fdev)
+        # a finite trajectory with non-finite violation/cost/stationarity
+        # (e.g. NaN parameters) is still a numerical failure
+        finite = (
+            torch.isfinite(z).all(-1).all(-1)
+            & torch.isfinite(viol)
+            & torch.isfinite(cost)
+            & torch.isfinite(grad_norm)
+        )
+        exitflag = torch.where(
+            finite & finished, 1, torch.where(finite, 0, -1)
+        ).to(torch.int32)
+        return SolveResult(
+            z=z,
+            exitflag=exitflag,
+            cost=cost,
+            violation=viol,
+            grad_norm=grad_norm,
+            lam=lam,
+            iterations=n_inner,
+            violation0_raw=violation0_raw,
+        )
+
+    return solve
