@@ -7,25 +7,54 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 1. device: the card's name and power limit from ``nvidia-smi``; no CUDA
    device (or no port package beside this script) exits non-zero.
-2. kernel: builds the structured Riccati CUDA kernel from
-   ``robot_mpcs_tpu_torch/csrc/riccati_packed.cu`` and holds it against its
-   plain PyTorch version on the same CUDA tensors at the test dims (3, 0, 6),
-   (3, 1, 5), the panda fleet shape (B=4096, N=20, nx=14, nw=7) and panda
-   with a slack column (nw=8), at
-   rtol 2e-3 / atol 2e-5; a NaN-poisoned lane must be the only failed lane.
-   Times both at the panda shape (CUDA events, median after warm-up).
-3. path: the panda fleet (``examples/config/pandaMpc.yaml`` with the fleet
-   benchmark's repulsion weight), B=4096 random scenarios from seed 0,
+2. build: both CUDA sources (``csrc/riccati_packed.cu``,
+   ``csrc/riccati_batched.cu``) compiled at once, one ``nvcc`` each, with
+   each instantiation's registers and spills (``-Xptxas -v``) printed.
+3. kernels, each held against its plain PyTorch version on the same CUDA
+   tensors:
+
+   * the structured sweep at the test dims (3, 0, 6), (3, 1, 5), the
+     pointRobot group shape (B=1024, N=20, nx=6, nw=3), the panda fleet
+     shape (B=4096, N=20, nx=14, nw=7) and panda with a slack column
+     (nw=8), at rtol 2e-3 / atol 2e-5; a NaN-poisoned lane must be the only
+     failed lane. Times both at the panda shape.
+   * the general sweep at (nx, nw, N, B) = (6, 3, 5, 5), (14, 7, 20, 64),
+     (8, 2, 10, 1024) (the boxer group shape), (8, 2, 10, 4096) and
+     (8, 3, 10, 64) with per-lane A/B, and
+     (8, 2, 10, 4096) with batch-constant A/B, at rtol 2e-3 / atol 2e-4
+     (``tests/test_riccati_pallas.py:70-75``); a lane with negative-definite
+     ``lww`` and a NaN-poisoned lane must each fail alone, the first with
+     all-zero gains. Times both at the boxer group shape (B=1024, N=10), the
+     boxer shape at B=4096 and (14, 7, 20) at B=4096, per-lane A/B.
+
+   A kernel's time (``ms``) is its device time per launch from
+   ``torch.profiler`` over 20 launches; ``call_ms`` and ``plain_ms`` are
+   CUDA events around one wrapper call (host launch path included), median
+   after warm-up. Each kernel's bound is the larger of its bytes over
+   3.35 TB/s and its fp32 flops over 67 TFLOP/s.
+4. panda path: the panda fleet (``examples/config/pandaMpc.yaml`` with the
+   fleet benchmark's repulsion weight), B=4096 random scenarios from seed 0,
    through ``FleetRunner(..., device="cuda")`` for 6 closed-loop steps with
-   the default rescue tier and kick. The kernel's launch count must grow,
-   every metric must be finite and the last step's converged fraction must
-   be >= 0.9 (a floor under the 0.956-0.971 the JAX package reaches).
-   Two more steps then split the step's wall time into phase-1 solve,
-   rescue-tier solve and the rest, and one step under ``torch.profiler``
-   gives the device's busy time, kernel count and idle share.
-4. reference: one batched solve of 64 of those scenarios on the card against
-   the same solve on the CPU (the plain Riccati version): exit flags and
-   true costs must agree.
+   the default rescue tier and kick. The structured kernel's launch count
+   must grow, every metric must be finite and the last step's converged
+   fraction must be >= 0.9 (a floor under the 0.956-0.971 the JAX package
+   reaches). Two more steps then split the step's wall time into phase-1
+   solve, rescue-tier solve and the rest, and one step under
+   ``torch.profiler`` gives the device's busy time, kernel count and idle
+   share.
+5. group path: ``FleetGroup`` of pointRobot 1024, panda 2048 and boxer 1024
+   lanes (``mixed_fleet_scenarios(seed=0)`` with bench.py's per-class
+   samplers and weights) for 5 closed-loop steps. Both kernels' launch
+   counts must grow (the structured one from panda and pointRobot, the
+   general one from boxer), every per-class metric must be finite and each
+   class's last-step converged fraction >= 0.9. Prints each class's
+   synchronized wall time per step, one profiled group step, and one
+   profiled call of the solver's diff-drive Jacobians (forward-mode
+   autodiff, ``dynamics_jacobians``).
+6. reference: 64 lanes solved on the card and on the CPU (plain Riccati
+   versions), for panda and for boxer: exit flags agree on >= 60 of 64,
+   true costs of lanes both converge within 1e-4 relative, converged
+   violation <= 1e-4.
 
 Output: the kernels JSON line, then the card's ``name, power.limit`` line,
 then the result line ``{"ok": true, "device": {...}}`` last.
@@ -33,6 +62,7 @@ then the result line ``{"ok": true, "device": {...}}`` last.
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 import subprocess
@@ -43,12 +73,29 @@ import numpy as np
 
 BATCH = 4096
 STEPS = 6
+GROUP_STEPS = 5
 PANDA_SAMPLER = dict(
     goal_box=((-0.5, -0.5, 0.2), (0.5, 0.5, 1.0)),
     obstacle_box=((-0.8, -0.8, 0.2), (0.8, 0.8, 1.0)),
     reachable_goals=True,
 )
+#: bench.py:48-77 per-class samplers (the weights are in the config dicts)
+GROUP_SAMPLERS = {
+    "pointRobot": dict(
+        goal_box=((-2.0, -2.0, 0.05), (2.0, 2.0, 0.05)),
+        obstacle_box=((-1.5, -1.5, 0.05), (1.5, 1.5, 0.05)),
+    ),
+    "panda": PANDA_SAMPLER,
+    "boxer": dict(
+        goal_box=((-2.0, -2.0, 0.0), (2.0, 2.0, 0.0)),
+        obstacle_box=((5.0, 5.0, 0.0), (6.0, 6.0, 0.0)),
+    ),
+}
+GROUP_SIZES = {"pointRobot": 1024, "panda": 2048, "boxer": 1024}
 RTOL, ATOL = 2e-3, 2e-5
+GEN_RTOL, GEN_ATOL = 2e-3, 2e-4
+#: H100 SXM datasheet peaks: HBM bytes/s, fp32 flop/s
+HBM_BPS, FP32_FLOPS = 3.35e12, 67e12
 
 
 class SmokeFailure(RuntimeError):
@@ -76,6 +123,58 @@ def random_sweep_inputs(B, N, nx, nw, seed=0):
     return lx, lw, lxx, lxw, lww, reg
 
 
+def random_general_inputs(B, N, nx, nw, batched_dyn=True, seed=0):
+    """Random LQR data with dynamics Jacobians (tests/test_riccati_pallas.py:18-37):
+    ``(lx, lw, lxx, lxw, lww, A, Bm, reg)``, A/Bm per lane or, with
+    ``batched_dyn=False``, one (N, ...) block for the batch; stage N-1 has
+    A = B = 0."""
+    lx, lw, lxx, lxw, lww, reg = random_sweep_inputs(B, N, nx, nw, seed)
+    rng = np.random.default_rng(seed + 1)
+    lead = (B, N) if batched_dyn else (N,)
+    A = np.eye(nx, dtype=np.float32) + 0.05 * rng.normal(size=lead + (nx, nx)).astype(np.float32)
+    Bm = 0.1 * rng.normal(size=lead + (nx, nw)).astype(np.float32)
+    A[..., -1, :, :] = 0.0
+    Bm[..., -1, :, :] = 0.0
+    return lx, lw, lxx, lxw, lww, A, Bm, reg
+
+
+def sweep_bound(B, N, nx, nw, dyn):
+    """(bound_ms, bound_by) of one Riccati sweep: each input read once, each
+    output written once, against the flops of the kernel's arithmetic.
+    ``dyn``: "packed" (A/B baked in), "batched" (per-lane A/B) or "constant"
+    (one (N, ...) A/B block)."""
+    words = nx + nw + nx * nx + nx * nw + nw * nw + nw + nw * nx  # stage in + gains out
+    m = 1 + nx
+    solve = 2 * nw ** 3 // 3 + 2 * nw * nw * m
+    if dyn == "packed":
+        n = nx // 2
+        flops = 3 * nx * nx + 5 * nx * n + 3 * n * n + solve + nx * (nx + 1) * nw + 2 * nx * nw
+    else:
+        words += (nx * nx + nx * nw) if dyn == "batched" else 0
+        flops = (
+            4 * nx ** 3 + 4 * nx * nx * nw + 2 * nx * nw * nw + 2 * nx * nx + 2 * nx * nw
+            + solve + 2 * nw * nw * m + 6 * nx * nw + 6 * nw * nx * (nx + 1)
+        )
+    nbytes = 4 * B * N * words + 5 * B
+    if dyn == "constant":
+        nbytes += 4 * N * (nx * nx + nx * nw)
+    t_bytes, t_ops = nbytes / HBM_BPS, B * N * flops / FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def kernel_device_ms(torch, fn, kernel_name, reps=20):
+    """Device time of one launch of the kernel whose name contains
+    ``kernel_name``: its CUDA time summed by ``torch.profiler`` over ``reps``
+    calls of ``fn``, over ``reps``. Unlike CUDA events around a call, this
+    leaves out the host's launch path, which a kernel of tens of
+    microseconds is shorter than."""
+    fn()
+    _, total = profile_windows(torch, {kernel_name: lambda: [fn() for _ in range(reps)]}, [kernel_name])
+    ms = total[f"{kernel_name}_ms"] / reps
+    check(ms > 0, f"the profiler saw no {kernel_name} launches")
+    return ms
+
+
 def time_ms(fn, torch, reps=20, warmup=3):
     """Median milliseconds per call, CUDA events around each call."""
     for _ in range(warmup):
@@ -93,15 +192,30 @@ def time_ms(fn, torch, reps=20, warmup=3):
     return float(np.median(times))
 
 
-def kernel_phase(torch, rp):
-    """Build, compare and time the Riccati kernel; returns its record."""
+def build_phase():
+    """Compile both kernel sources at once (one nvcc each) and print what
+    ``-Xptxas -v`` says about each instantiation."""
+    from robot_mpcs_tpu_torch.ops import _build
+
     t0 = time.perf_counter()
-    rp.build_kernel()
-    print(f"kernel build: {time.perf_counter() - t0:.1f} s", flush=True)
+    stems = ("riccati_packed", "riccati_batched")
+    with concurrent.futures.ThreadPoolExecutor(len(stems)) as pool:
+        results = dict(zip(stems, pool.map(_build.build_library, stems)))
+    print(f"kernel build (parallel): {time.perf_counter() - t0:.1f} s", flush=True)
+    for stem, (path, log) in results.items():
+        print(f"{stem}: {path.name}", flush=True)
+        for line in log.splitlines():
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
+                print(f"  {line.strip()}", flush=True)
+
+
+def packed_kernel_phase(torch, rp):
+    """Compare and time the structured Riccati kernel; returns its record."""
     a, b1, b2 = 0.05, 0.00125, 0.05  # panda's dt = 0.05 double integrator
     max_err = 0.0
-    # the test dims, the panda fleet shape, and panda with a slack column
-    for n, ns, N, B in ((3, 0, 6, 5), (3, 1, 5, 5), (7, 0, 20, BATCH), (7, 1, 20, 64)):
+    # the test dims, pointRobot's group shape, the panda fleet shape, and
+    # panda with a slack column
+    for n, ns, N, B in ((3, 0, 6, 5), (3, 1, 5, 5), (3, 0, 20, 1024), (7, 0, 20, BATCH), (7, 1, 20, 64)):
         nx, nw = 2 * n, ns + n
         args = [torch.as_tensor(v, device="cuda") for v in random_sweep_inputs(B, N, nx, nw)]
         kw = dict(N=N, nx=nx, nw=nw, ns=ns, a=a, b1=b1, b2=b2)
@@ -113,11 +227,11 @@ def kernel_phase(torch, rp):
             max_err = max(max_err, err)
             check(
                 torch.allclose(got, want, rtol=RTOL, atol=ATOL),
-                f"kernel {name} differs from the plain version at dims {(n, ns, N)}, B={B}: "
-                f"max abs err {err:.3e}",
+                f"packed kernel {name} differs from the plain version at dims {(n, ns, N)}, "
+                f"B={B}: max abs err {err:.3e}",
             )
         check(not bool(f.any()) and not bool(f_ref.any()), f"spurious failed lanes at {(n, ns, N)}")
-        print(f"kernel vs plain at (n, ns, N, B)={(n, ns, N, B)}: max abs err "
+        print(f"packed kernel vs plain at (n, ns, N, B)={(n, ns, N, B)}: max abs err "
               f"k_ff {float((k - k_ref).abs().max()):.3e}, K {float((K - K_ref).abs().max()):.3e}",
               flush=True)
     # NaN-poisoned lane: only that lane fails, healthy lanes stay finite
@@ -126,14 +240,18 @@ def kernel_phase(torch, rp):
     k, K, f = rp.riccati_backward_packed(*args, N=4, nx=6, nw=3, ns=0, a=0.1, b1=0.005, b2=0.1)
     check(f.tolist() == [False, False, True, False], f"NaN lane contract: failed = {f.tolist()}")
     check(bool(torch.isfinite(k[[0, 1, 3]]).all()), "NaN lane leaked into healthy lanes")
-    print("NaN-lane contract: only lane 2 failed", flush=True)
+    print("packed NaN-lane contract: only lane 2 failed", flush=True)
     # time both at the panda shape
     args = [torch.as_tensor(v, device="cuda") for v in random_sweep_inputs(BATCH, 20, 14, 7, seed=1)]
     kw = dict(N=20, nx=14, nw=7, ns=0, a=a, b1=b1, b2=b2)
-    ms = time_ms(lambda: rp.riccati_backward_packed(*args, **kw), torch)
+    call = lambda: rp.riccati_backward_packed(*args, **kw)  # noqa: E731
+    ms = kernel_device_ms(torch, call, "riccati_packed_kernel")
+    call_ms = time_ms(call, torch)
     plain_ms = time_ms(lambda: rp.riccati_backward_packed_reference(*args, **kw), torch, reps=10)
-    print(f"riccati sweep at B={BATCH}, N=20, nx=14, nw=7: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms", flush=True)
+    bound_ms, bound_by = sweep_bound(BATCH, 20, 14, 7, "packed")
+    print(f"packed sweep at B={BATCH}, N=20, nx=14, nw=7: kernel {ms:.4f} ms on the device, "
+          f"{call_ms:.4f} ms per call, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})",
+          flush=True)
     return {
         "name": "riccati_backward_packed",
         "route": "cuda",
@@ -143,8 +261,125 @@ def kernel_phase(torch, rp):
         "max_abs_err": max_err,
         "ms": ms,
         "kernel_ms": ms,
+        "call_ms": call_ms,
         "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,  # no single PyTorch call computes a Riccati sweep
     }
+
+
+def batched_kernel_phase(torch, rb):
+    """Compare and time the general Riccati kernel; returns its record."""
+    max_err = 0.0
+    cases = [
+        (6, 3, 5, 5, True), (14, 7, 20, 64, True), (8, 2, 10, 1024, True),
+        (8, 2, 10, 4096, True), (8, 3, 10, 64, True), (8, 2, 10, 4096, False),
+    ]
+    for nx, nw, N, B, batched_dyn in cases:
+        args = [torch.as_tensor(v, device="cuda")
+                for v in random_general_inputs(B, N, nx, nw, batched_dyn)]
+        kw = dict(N=N, nx=nx, nw=nw)
+        k, K, f = rb.riccati_backward_batched(*args, **kw)
+        k_ref, K_ref, f_ref = rb.riccati_backward_batched_reference(*args, **kw)
+        torch.cuda.synchronize()
+        for name, got, want in (("k_ff", k, k_ref), ("K", K, K_ref)):
+            err = float((got - want).abs().max())
+            max_err = max(max_err, err)
+            check(
+                torch.allclose(got, want, rtol=GEN_RTOL, atol=GEN_ATOL),
+                f"general kernel {name} differs from the plain version at "
+                f"(nx, nw, N, B)={(nx, nw, N, B)}, batched A/B {batched_dyn}: max abs err {err:.3e}",
+            )
+        check(not bool(f.any()) and not bool(f_ref.any()),
+              f"spurious failed lanes at {(nx, nw, N, B)}")
+        print(f"general kernel vs plain at (nx, nw, N, B)={(nx, nw, N, B)}, "
+              f"{'per-lane' if batched_dyn else 'batch-constant'} A/B: max abs err "
+              f"k_ff {float((k - k_ref).abs().max()):.3e}, K {float((K - K_ref).abs().max()):.3e}",
+              flush=True)
+    # a negative-definite lww lane fails alone with zero gains; so does a NaN lane
+    for bad_lane, poison in ((1, "negdef"), (2, "nan")):
+        args = [torch.as_tensor(v, device="cuda") for v in random_general_inputs(4, 4, 8, 2, seed=5)]
+        if poison == "negdef":
+            args[4][bad_lane] = -10.0 * torch.eye(2, device="cuda")
+        else:
+            args[2][bad_lane, 1] = float("nan")
+        k, K, f = rb.riccati_backward_batched(*args, N=4, nx=8, nw=2)
+        want = [i == bad_lane for i in range(4)]
+        check(f.tolist() == want, f"general {poison} lane contract: failed = {f.tolist()}")
+        good = [i for i in range(4) if i != bad_lane]
+        check(bool(torch.isfinite(k[good]).all() and torch.isfinite(K[good]).all()),
+              f"{poison} lane leaked into healthy lanes")
+        if poison == "negdef":
+            check(bool((k[bad_lane] == 0).all() and (K[bad_lane] == 0).all()),
+                  "negative-definite lane has non-zero gains")
+        print(f"general {poison}-lane contract: only lane {bad_lane} failed", flush=True)
+    # times: the boxer group shape (the record), then boxer and (14, 7, 20) at B=4096
+    timings = {}
+    for nx, nw, N, B in ((8, 2, 10, 1024), (8, 2, 10, BATCH), (14, 7, 20, BATCH)):
+        args = [torch.as_tensor(v, device="cuda") for v in random_general_inputs(B, N, nx, nw, seed=1)]
+        kw = dict(N=N, nx=nx, nw=nw)
+        call = lambda: rb.riccati_backward_batched(*args, **kw)  # noqa: E731
+        ms = kernel_device_ms(torch, call, "riccati_batched_kernel")
+        call_ms = time_ms(call, torch)
+        plain_ms = time_ms(lambda: rb.riccati_backward_batched_reference(*args, **kw), torch, reps=10)
+        bound_ms, bound_by = sweep_bound(B, N, nx, nw, "batched")
+        timings[(nx, nw, N, B)] = (ms, call_ms, plain_ms, bound_ms, bound_by)
+        print(f"general sweep at B={B}, N={N}, nx={nx}, nw={nw}, per-lane A/B: kernel {ms:.4f} ms "
+              f"on the device, {call_ms:.4f} ms per call, plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+    ms, call_ms, plain_ms, bound_ms, bound_by = timings[(8, 2, 10, 1024)]
+    return {
+        "name": "riccati_backward_batched",
+        "route": "cuda",
+        "source": "robot_mpcs_tpu_torch/csrc/riccati_batched.cu",
+        "replaces": "robot_mpcs_tpu/ops/riccati_pallas.py:189",
+        "launches": 0,
+        "max_abs_err": max_err,
+        "ms": ms,
+        "kernel_ms": ms,
+        "call_ms": call_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,  # no single PyTorch call computes a Riccati sweep
+    }
+
+
+def profile_windows(torch, fns, kernel_names):
+    """Run each of ``fns`` under its own ``torch.profiler`` window; returns
+    per-window and total (wall ms, device events, device busy ms, per-kernel
+    ms) and the idle share over all windows."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out, total = {}, {"wall_ms": 0.0, "device_events": 0, "device_busy_ms": 0.0}
+    total.update({f"{k}_ms": 0.0 for k in kernel_names})
+    for name, fn in fns.items():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+        device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        rec = {
+            "wall_ms": wall_ms,
+            "device_events": len(device),
+            "device_busy_ms": float(sum(e.time_range.elapsed_us() for e in device)) / 1e3,
+        }
+        for k in kernel_names:
+            rec[f"{k}_ms"] = float(sum(
+                e.time_range.elapsed_us() for e in device if k in e.name
+            )) / 1e3
+        out[name] = rec
+        for k in total:
+            total[k] += rec[k]
+    total["idle_share"] = (
+        1.0 - total["device_busy_ms"] / total["wall_ms"] if total["device_events"] else None
+    )
+    if not total["device_events"]:
+        print("profiler recorded no device events: device time not measured", flush=True)
+    return out, total
 
 
 def path_phase(torch, rp):
@@ -199,8 +434,6 @@ def step_breakdown(torch, runner, state, scen, steps=2):
     stragglers, post-step, kick, metrics), then one step under
     ``torch.profiler`` for the device's busy time and kernel count, with the
     idle share taken within that same profiled step."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     def timed(fn, key, acc):
         def wrapped(*args):
@@ -228,26 +461,104 @@ def step_breakdown(torch, runner, state, scen, steps=2):
         }), flush=True)
     runner._solve, runner._tiers = solve, tiers
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        state, _ = runner.step(state, scen)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t) * 1e6
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_us = float(sum(e.time_range.elapsed_us() for e in device))
-    riccati_us = float(sum(
-        e.time_range.elapsed_us() for e in device if "riccati_packed_kernel" in e.name
-    ))
+    _, total = profile_windows(
+        torch, {"panda": lambda: runner.step(state, scen)}, ["riccati_packed_kernel"]
+    )
     print(json.dumps({
-        "profiled_step_ms": wall_us / 1e3, "device_events": len(device),
-        "device_busy_ms": busy_us / 1e3, "riccati_kernel_ms": riccati_us / 1e3,
-        "idle_share_in_profiled_step": 1.0 - busy_us / wall_us if device else None,
+        "profiled_step_ms": total["wall_ms"], "device_events": total["device_events"],
+        "device_busy_ms": total["device_busy_ms"],
+        "riccati_kernel_ms": total["riccati_packed_kernel_ms"],
+        "idle_share_in_profiled_step": total["idle_share"],
     }), flush=True)
-    if not device:
-        print("profiler recorded no device events: device time not measured", flush=True)
 
 
-def reference_phase(torch, problem, scenario):
+def group_phase(torch, rp, rb):
+    """Drive the mixed fleet on the card; returns (boxer problem, boxer
+    scenario, packed launches, batched launches)."""
+    from robot_mpcs_tpu_torch.config import Setup, boxer_setup, panda_setup, point_robot_setup
+    from robot_mpcs_tpu_torch.models.problem import MpcProblem
+    from robot_mpcs_tpu_torch.parallel import FleetGroup, mixed_fleet_scenarios
+
+    t0 = time.perf_counter()
+    setups = {"pointRobot": point_robot_setup, "panda": panda_setup, "boxer": boxer_setup}
+    problems = {k: (MpcProblem(Setup.from_dict(setups[k]())), b) for k, b in GROUP_SIZES.items()}
+    scenarios = mixed_fleet_scenarios(problems, seed=0, sampler_kwargs=GROUP_SAMPLERS)
+    group = FleetGroup(problems, device="cuda")
+    scen = group.to_device(scenarios)
+    states = group.init_states(scen)
+    torch.cuda.synchronize()
+    print(f"group set-up: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # per-class synchronized wall time: each class's step, timed on its own
+    class_s = {k: [] for k in group.runners}
+    steps = {k: r.step for k, r in group.runners.items()}
+
+    def timed_step(name):
+        def fn(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = steps[name](*args)
+            torch.cuda.synchronize()
+            class_s[name].append(time.perf_counter() - t)
+            return out
+        return fn
+
+    for name, runner in group.runners.items():
+        runner.step = timed_step(name)
+    rp.riccati_backward_packed.launches = 0
+    rb.riccati_backward_batched.launches = 0
+    metrics = None
+    for i in range(GROUP_STEPS):
+        states, metrics = group.step(states, scen)
+        per = {k: {f: float(v) for f, v in m._asdict().items()} for k, m in metrics.per_class.items()}
+        print(json.dumps({
+            "group_step": i,
+            **{f"{k}_step_ms": class_s[k][-1] * 1e3 for k in group.runners},
+            **{f"{k}_converged": per[k]["converged_fraction"] for k in per},
+            **{f"{k}_mean_goal_distance": per[k]["mean_goal_distance"] for k in per},
+            "overall_converged": float(metrics.overall.converged_fraction),
+        }), flush=True)
+        for k, m in per.items():
+            check(all(np.isfinite(v) for v in m.values()), f"non-finite {k} metrics at group step {i}: {m}")
+    packed_launches = rp.riccati_backward_packed.launches
+    batched_launches = rb.riccati_backward_batched.launches
+    for name, runner in group.runners.items():
+        runner.step = steps[name]
+    check(packed_launches > 0, "the group step never launched the structured Riccati kernel")
+    check(batched_launches > 0, "the group step never launched the general Riccati kernel")
+    for k, m in metrics.per_class.items():
+        cf = float(m.converged_fraction)
+        check(cf >= 0.9, f"{k}: last-step converged_fraction {cf} < 0.9")
+    last = {k: {f: float(v) for f, v in m._asdict().items()} for k, m in metrics.per_class.items()}
+    print(json.dumps({
+        "group": GROUP_SIZES, "steps": GROUP_STEPS,
+        "packed_launches": packed_launches, "batched_launches": batched_launches,
+        **{f"{k}_median_step_ms": float(np.median(class_s[k][1:])) * 1e3 for k in group.runners},
+        "group_median_step_ms": float(np.median(
+            [sum(class_s[k][i] for k in group.runners) for i in range(1, GROUP_STEPS)]
+        )) * 1e3,
+        "last_step": last,
+    }), flush=True)
+
+    # one profiled group step, one window per class
+    per_win, total = profile_windows(
+        torch,
+        {k: (lambda k=k: group.runners[k].step(states[k], scen[k])) for k in group.runners},
+        ["riccati_packed_kernel", "riccati_batched_kernel"],
+    )
+    print(json.dumps({"profiled_group_step": total, "per_class": per_win}), flush=True)
+    # one profiled call of the solver's diff-drive Jacobians at the group
+    # shape (forward-mode autodiff of the dynamics, models.dynamics_jacobians)
+    nx = group.runners["boxer"].dims.nx
+    z = states["boxer"].z_warm
+    jac = problems["boxer"][0].build_solver(device="cuda")._internals["all_dyn_jacobians"]
+    jac(z[..., :nx], z[..., nx:])  # warm-up
+    _, jt = profile_windows(torch, {"jac": lambda: jac(z[..., :nx], z[..., nx:])}, [])
+    print(json.dumps({"boxer_dyn_jacobians_call": jt}), flush=True)
+    return problems["boxer"][0], scenarios["boxer"], packed_launches, batched_launches
+
+
+def reference_phase(torch, label, problem, scenario):
     """One batched solve of 64 lanes on the card vs the same solve on the CPU."""
     B = 64
     dims = problem.dims
@@ -257,20 +568,21 @@ def reference_phase(torch, problem, scenario):
     lam0 = torch.zeros((B, dims.N, problem.n_con))
     res_gpu = problem.build_solver(device="cuda")(xinit, params, z0, lam0)
     res_cpu = problem.build_solver(device="cpu")(xinit, params, z0, lam0)
-    check(tuple(res_gpu.z.shape) == (B, dims.N, dims.nz), "solve output shape")
-    check(bool(torch.isfinite(res_gpu.z).all()), "non-finite solve output")
+    check(tuple(res_gpu.z.shape) == (B, dims.N, dims.nz), f"{label}: solve output shape")
+    check(bool(torch.isfinite(res_gpu.z).all()), f"{label}: non-finite solve output")
     flag_gpu, flag_cpu = res_gpu.exitflag.cpu(), res_cpu.exitflag
     agree = int((flag_gpu == flag_cpu).sum())
     both = (flag_gpu == 1) & (flag_cpu == 1)
+    check(bool(both.any()), f"{label}: no lane converged on both card and CPU")
     rel = ((res_gpu.cost.cpu() - res_cpu.cost).abs() / res_cpu.cost.abs().clamp(min=1e-6))[both]
     viol = res_gpu.violation.cpu()[flag_gpu == 1]
-    print(f"card vs CPU solve (B={B}): exit flags agree {agree}/{B}, converged on both "
+    print(f"{label} card vs CPU solve (B={B}): exit flags agree {agree}/{B}, converged on both "
           f"{int(both.sum())}, max rel cost diff {float(rel.max()):.3e}, "
           f"max violation (converged) {float(viol.max()):.3e}", flush=True)
     # f32 sums in another order can flip a borderline line-search accept
-    check(agree >= B - 4, f"exit flags agree on only {agree}/{B} lanes")
-    check(float(rel.max()) <= 1e-4, "true costs of converged lanes disagree")
-    check(float(viol.max()) <= 1e-4, "converged lanes violate constraints")
+    check(agree >= B - 4, f"{label}: exit flags agree on only {agree}/{B} lanes")
+    check(float(rel.max()) <= 1e-4, f"{label}: true costs of converged lanes disagree")
+    check(float(viol.max()) <= 1e-4, f"{label}: converged lanes violate constraints")
 
 
 def main() -> int:
@@ -282,6 +594,7 @@ def main() -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
     try:
+        from robot_mpcs_tpu_torch.ops import riccati_batched as rb
         from robot_mpcs_tpu_torch.ops import riccati_packed as rp
     except ImportError as e:
         print(f"chip_smoke: the port package is not beside this script: {e}", file=sys.stderr)
@@ -292,13 +605,21 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(f"device: {smi}", flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    t0 = time.perf_counter()
 
-    record = kernel_phase(torch, rp)
-    problem, scenario, launches = path_phase(torch, rp)
-    record["launches"] = launches
-    reference_phase(torch, problem, scenario)
+    build_phase()
+    packed = packed_kernel_phase(torch, rp)
+    batched = batched_kernel_phase(torch, rb)
+    print(f"kernel phases done at {time.perf_counter() - t0:.1f} s", flush=True)
+    panda, panda_scenario, packed["launches"] = path_phase(torch, rp)
+    print(f"panda path done at {time.perf_counter() - t0:.1f} s", flush=True)
+    boxer, boxer_scenario, _, batched["launches"] = group_phase(torch, rp, rb)
+    print(f"group path done at {time.perf_counter() - t0:.1f} s", flush=True)
+    reference_phase(torch, "panda", panda, panda_scenario)
+    reference_phase(torch, "boxer", boxer, boxer_scenario)
+    print(f"all phases done at {time.perf_counter() - t0:.1f} s", flush=True)
 
-    print(json.dumps({"kernels": [record]}), flush=True)
+    print(json.dumps({"kernels": [packed, batched]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({
         "ok": True,

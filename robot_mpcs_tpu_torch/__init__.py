@@ -8,9 +8,10 @@ that run the port carry no JAX.
 
 Inside, the port is batch-first: every per-stage tensor is ``[B, N, ...]``
 where the JAX package writes a single stage and ``vmap``s it, and every JAX
-``lax.while_loop`` is a Python loop over a per-lane ``done`` mask. The one
-hand-written kernel of this slice is the structured Riccati sweep
-(``ops/riccati_packed.py`` + ``csrc/riccati_packed.cu``).
+``lax.while_loop`` is a Python loop over a per-lane ``done`` mask. The
+hand-written kernels are the two Riccati sweeps: the structured holonomic
+one (``ops/riccati_packed.py`` + ``csrc/riccati_packed.cu``) and the general
+one (``ops/riccati_batched.py`` + ``csrc/riccati_batched.cu``).
 """
 
 import torch
@@ -27,8 +28,10 @@ from robot_mpcs_tpu_torch.config import (  # noqa: E402
     RobotConfiguration,
     Setup,
     SolverConfiguration,
+    boxer_setup,
     load_setup,
     panda_setup,
+    point_robot_setup,
 )
 
 __version__ = "0.1.0"

@@ -131,10 +131,12 @@ class SolverConfiguration:
     tol_constraint: float = 1.0e-4
     tol_stationarity: float = 1.0e-3
     #: Riccati backward implementation, same values as the JAX package:
-    #: 'auto' and 'pallas' both mean the structured sweep of
-    #: ``ops/riccati_packed.py`` — the hand-written CUDA kernel on a CUDA
-    #: tensor, its plain PyTorch version on a CPU tensor. 'scan' (the JAX
-    #: package's general stage scan) is not ported yet and raises.
+    #: 'auto' and 'pallas' both mean the hand-written CUDA kernel on a CUDA
+    #: tensor and its plain PyTorch version on a CPU tensor — the structured
+    #: sweep of ``ops/riccati_packed.py`` for holonomic dynamics, the general
+    #: sweep of ``ops/riccati_batched.py`` otherwise (diff-drive). 'scan' is
+    #: the JAX package's stage scan (``solver.al_ilqr.riccati_backward_scan``)
+    #: on any device.
     riccati_backend: str = "auto"
 
     def __post_init__(self) -> None:
@@ -242,6 +244,94 @@ def panda_setup() -> Dict[str, Any]:
             "root_link": "panda_link0",
             "end_link": "panda_link7",
             "base_type": "holonomic",
+        },
+        "example": {"debug": False},
+    }
+
+
+def point_robot_setup() -> Dict[str, Any]:
+    """``examples/config/pointRobotMpc.yaml`` as a plain dict, with the fleet
+    benchmark's repulsion override ``wconstr = [0.005, 0, 0, 0]``
+    (``bench.py:62-69``); see ``panda_setup``."""
+    return {
+        "type": "mpc",
+        "mpc": {
+            "model_name": "pointRobot",
+            "n": 3,
+            "time_horizon": 20,
+            "time_step": 0.05,
+            "slack": False,
+            "interval": 1,
+            "initialization": "current_state",
+            "constraints": [
+                "RadialConstraints",
+                "SelfCollisionAvoidanceConstraints",
+                "JointLimitConstraints",
+                "InputLimitConstraints",
+            ],
+            "objectives": ["GoalReaching", "ConstraintAvoidance"],
+            "weights": {
+                "w": 1.0,
+                "wvel": [1.0, 1.0, 1.0],
+                "ws": "1e10",
+                "wu": 0.1,
+                "wobst": 0.05,
+                "wconstr": [0.005, 0.0, 0.0, 0.0],
+            },
+            "number_obstacles": 1,
+            "control_mode": "acc",
+        },
+        "robot": {
+            "collision_links": ["base_link"],
+            "selfCollision": {"pairs": []},
+            "urdf_file": "pointRobot.urdf",
+            "root_link": "world",
+            "end_link": "base_link",
+            "base_type": "holonomic",
+        },
+        "example": {"debug": False},
+    }
+
+
+def boxer_setup() -> Dict[str, Any]:
+    """``examples/config/boxerMpc.yaml`` as a plain dict (the fleet benchmark
+    uses its weights unchanged, ``bench.py:70-77``); see ``panda_setup``."""
+    return {
+        "type": "mpc",
+        "mpc": {
+            "model_name": "boxer",
+            "n": 3,
+            "time_horizon": 10,
+            "time_step": 0.1,
+            "slack": False,
+            "interval": 1,
+            "initialization": "previous_plan",
+            "constraints": [
+                "LinearConstraints",
+                "SelfCollisionAvoidanceConstraints",
+                "JointLimitConstraints",
+                "InputLimitConstraints",
+            ],
+            "objectives": ["GoalReaching", "ConstraintAvoidance"],
+            "weights": {
+                "w": 1.0,
+                "wgoal": 1.0,
+                "wvel": [0.0, 0.0, 0.0, 1, 0.01],
+                "ws": "1e10",
+                "wu": 0.01,
+                "wobst": 0.5,
+                "wconstr": [0.0, 0.0, 0.0, 0.0],
+            },
+            "number_obstacles": 1,
+            "control_mode": "acc",
+        },
+        "robot": {
+            "collision_links": ["ee_link"],
+            "selfCollision": {"pairs": []},
+            "urdf_file": "boxer_fk.urdf",
+            "root_link": "base_link",
+            "end_link": "ee_link",
+            "base_type": "diffdrive",
         },
         "example": {"debug": False},
     }

@@ -130,6 +130,22 @@ def _jacobians_at_zero(dims: ProblemDimensions, F: DynamicsFn):
     return A, B
 
 
+def dynamics_jacobians(F: DynamicsFn):
+    """Batched Jacobians of discrete dynamics ``F``: returns ``J(x, u) ->
+    (A (..., nx, nx), Bu (..., nx, nu))`` for any leading dimensions of
+    ``x (..., nx)`` and ``u (..., nu)``. The JAX package takes ``jax.jacfwd``
+    per stage and ``vmap``s it (al_ilqr.py:453-464); here one forward-mode
+    pass runs over the flattened rows."""
+    jac = torch.func.vmap(torch.func.jacfwd(F, argnums=(0, 1)))
+
+    def J(x: torch.Tensor, u: torch.Tensor):
+        lead = x.shape[:-1]
+        A, Bu = jac(x.reshape(-1, x.shape[-1]), u.reshape(-1, u.shape[-1]))
+        return A.reshape(lead + A.shape[-2:]), Bu.reshape(lead + Bu.shape[-2:])
+
+    return J
+
+
 def constant_dynamics_jacobians(dims: ProblemDimensions, F: DynamicsFn):
     """If the discrete dynamics are linear (holonomic double integrator,
     ``mpcModel.py:65-69``), return the constant Jacobians (A, B) as f32 numpy

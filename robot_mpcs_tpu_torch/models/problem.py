@@ -283,7 +283,10 @@ class MpcProblem:
         w = [s, u], the split-row layout, and (w_lb, w_ub) clamp bounds. The
         port carries only the two-family split form (``split_callbacks``);
         the JAX package's stacked ``values``/``weights`` and exact-Hessian
-        paths serve custom problems and are not ported."""
+        paths serve custom problems and are not ported. ``dyn_jac`` is the
+        constant ``(A, B)`` pair of linear (holonomic) dynamics, else None:
+        the solver differentiates the diff-drive ``dynamics`` (forward-mode
+        ``dynamics_jacobians``, as the JAX package's per-stage jacfwd)."""
         from robot_mpcs_tpu_torch.solver.al_ilqr import StageFunctions
 
         dims = self.dims
@@ -304,9 +307,10 @@ class MpcProblem:
         return stage, split, w_lb.astype(np.float32), w_ub.astype(np.float32)
 
     def build_solver(
-        self, cfg: Optional[SolverConfiguration] = None, device=None
+        self, cfg: Optional[SolverConfiguration] = None, device="cuda"
     ) -> Callable:
-        """Build the batched solve function for this problem on ``device``."""
+        """Build the batched solve function for this problem on ``device``
+        (default the CUDA card; ``"cpu"`` for the CPU)."""
         from robot_mpcs_tpu_torch.solver.al_ilqr import build_solver
 
         stage, split, w_lb, w_ub = self.solver_callbacks()

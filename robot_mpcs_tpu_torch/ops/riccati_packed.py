@@ -9,10 +9,8 @@ scalars, so every A/B product of the sweep collapses to O(nx^2) work.
 * On a CUDA tensor, ``riccati_backward_packed`` launches the hand-written
   kernel of ``csrc/riccati_packed.cu`` (one thread per scenario, the stage
   loop inside the thread; see the note at the top of that file for what
-  bounds it on an H100). The kernel is compiled by ``nvcc`` for ``sm_90a``
-  on first use into ``build/robot_mpcs_tpu_torch/`` beside the package and
-  loaded with ``ctypes``. A missing ``nvcc`` or a failed build raises; there
-  is no fallback.
+  bounds it on an H100), built and loaded by ``ops/_build.py``. A missing
+  ``nvcc`` or a failed build raises; there is no fallback.
 * On a CPU tensor it runs ``riccati_backward_packed_reference``, the plain
   batched PyTorch version of the same recursion (and the kernel's oracle).
 
@@ -26,25 +24,14 @@ value function, and outputs in the input dtype.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from robot_mpcs_tpu_torch.ops import _build
+
 _PIVOT_TINY = 1e-12
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "riccati_packed.cu"
-_NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-]
-#: what the launcher returns for an (nx, nw, ns) the source does not instantiate
-_NO_INSTANTIATION = -1
 
 
 def detect_structure(
@@ -162,73 +149,16 @@ def riccati_backward_packed_reference(
 # ------------------------------------------------------------------ the kernel
 
 
-def _build_dir() -> Path:
-    return _SOURCE.parent.parent.parent / "build" / "robot_mpcs_tpu_torch"
-
-
-def _nvcc() -> str:
-    cands = [
-        shutil.which("nvcc"),
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-    ]
-    for c in cands:
-        if c and os.path.exists(c):
-            return c
-    raise RuntimeError(
-        "riccati_backward_packed: nvcc not found (PATH, $CUDA_HOME/bin, "
-        "/usr/local/cuda/bin); the CUDA kernel cannot be built"
-    )
-
-
-_lib = None
-
-
 def build_kernel() -> ctypes.CDLL:
     """Compile (once per hash of source, flags and nvcc version) and load the
     kernel library."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    nvcc = _nvcc()
-    version = subprocess.run(
-        [nvcc, "--version"], capture_output=True, text=True, check=True
-    ).stdout
-    key = _SOURCE.read_bytes() + " ".join(_NVCC_FLAGS).encode() + version.encode()
-    tag = hashlib.sha256(key).hexdigest()[:16]
-    out_dir = _build_dir()
-    out = out_dir / f"libriccati_packed_{tag}.so"
-    if not out.exists():
-        out_dir.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-        os.close(fd)
-        cmd = [nvcc, *_NVCC_FLAGS, "-o", tmp, str(_SOURCE)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"riccati_backward_packed: nvcc failed ({proc.returncode}):\n"
-                f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, out)  # atomic: a concurrent build never sees a partial file
-    lib = ctypes.CDLL(str(out))
+    lib = _build.load_library("riccati_packed")
     fn = lib.riccati_packed_launch
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3 + [
         ctypes.c_void_p
     ]
     fn.restype = ctypes.c_int
-    _lib = lib
     return lib
-
-
-def _check(name, t, shape, device):
-    if t.device != device:
-        raise ValueError(f"riccati_backward_packed: {name} on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"riccati_backward_packed: {name} is {t.dtype}, the kernel takes float32")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"riccati_backward_packed: {name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"riccati_backward_packed: {name} is not contiguous")
 
 
 def riccati_backward_packed(lx, lw, lxx, lxw, lww, reg, *, N, nx, nw, ns, a, b1, b2):
@@ -256,10 +186,12 @@ def riccati_backward_packed(lx, lw, lxx, lxw, lww, reg, *, N, nx, nw, ns, a, b1,
         ("lww", lww, (Bsz, N, nw, nw)),
         ("reg", reg, (Bsz,)),
     ):
-        _check(name, t, shape, dev)
-    lib = build_kernel()
+        _build.check_tensor("riccati_backward_packed", name, t, shape, dev)
     k_ff = torch.empty((Bsz, N, nw), dtype=torch.float32, device=dev)
     K = torch.empty((Bsz, N, nw, nx), dtype=torch.float32, device=dev)
+    if Bsz == 0 or N == 0:  # nothing to sweep: no launch, no lane failed
+        return k_ff, K, torch.zeros((Bsz,), dtype=torch.bool, device=dev)
+    lib = build_kernel()
     failed = torch.empty((Bsz,), dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -269,13 +201,9 @@ def riccati_backward_packed(lx, lw, lxx, lxw, lww, reg, *, N, nx, nw, ns, a, b1,
             failed.data_ptr(), Bsz, N, nx, nw, ns,
             float(a), float(b1), float(b2), stream,
         )
-    if err == _NO_INSTANTIATION:
-        raise ValueError(
-            f"riccati_backward_packed: no CUDA instantiation for (nx, nw, ns) = "
-            f"{(nx, nw, ns)}; add a RICCATI_CASE line to csrc/riccati_packed.cu"
-        )
-    if err != 0:
-        raise RuntimeError(f"riccati_backward_packed: kernel launch failed (cudaError {err})")
+    _build.raise_for_status(
+        "riccati_backward_packed", err, "(nx, nw, ns)", (nx, nw, ns), "riccati_packed.cu"
+    )
     riccati_backward_packed.launches += 1
     return k_ff, K, failed
 

@@ -8,7 +8,9 @@ loop conditions and whatever metrics the caller reads.
 
 This slice is single-device: the JAX package's mesh, ``shard_map`` step,
 AOT export and ``artifact_dir`` are later slices. With one device the
-rescue gather runs over a single group (``G = 1`` in the JAX code).
+rescue gather runs over a single group (``G = 1`` in the JAX code). Nothing
+here depends on the robot family: holonomic and diff-drive problems differ
+only inside the solver (which Riccati sweep) and the scenario sampler.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 from robot_mpcs_tpu_torch.config import SolverConfiguration
 from robot_mpcs_tpu_torch.models.problem import MpcProblem
 from robot_mpcs_tpu_torch.solver.types import SolveResult
+from robot_mpcs_tpu_torch.utils.devices import resolve_device
 
 #: seed of the local-minimum kick noise; each step draws from seed + step
 KICK_SEED = 0x5EED
@@ -81,14 +84,15 @@ class FleetRunner:
     lanes are gathered into a ``1/compaction_ratio``-size sub-batch and
     re-solved warm with a richer budget. ``rescue_tiers``, ``stall_reset_after``
     and the ``kick_*`` local-minimum escape follow the JAX package's
-    ``FleetRunner`` exactly (fleet.py:114-156 there).
+    ``FleetRunner`` exactly (fleet.py:114-156 there). Runs on the CUDA card
+    unless ``device`` says otherwise (``"cpu"``).
     """
 
     def __init__(
         self,
         problem: MpcProblem,
         batch_size: int,
-        device=None,
+        device="cuda",
         solver_cfg: Optional[SolverConfiguration] = None,
         compaction_ratio: int = 8,
         phase1_al_iterations: int = 2,
@@ -101,7 +105,7 @@ class FleetRunner:
         self.problem = problem
         self.dims = problem.dims
         self.batch = batch_size
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self.device = resolve_device(device)
         base_cfg = solver_cfg if solver_cfg is not None else problem.setup.solver
         self._stall_reset_after = int(stall_reset_after)
         self._kick_after = int(kick_after)

@@ -7,8 +7,10 @@ drives (reference ``robotmpcs/models/mpcModel.py:74-129`` builds the problem,
 
 * **Equality structure (stage dynamics)** is eliminated by a Riccati backward
   sweep over the horizon: the structured holonomic sweep of
-  ``ops/riccati_packed.py`` (the CUDA kernel on the card, its plain version
-  on the CPU).
+  ``ops/riccati_packed.py`` where the dynamics have its block form, else the
+  general sweep of ``ops/riccati_batched.py`` (each the CUDA kernel on the
+  card, its plain version on the CPU), or with ``riccati_backend="scan"``
+  the JAX package's stage scan (``riccati_backward_scan``).
 * **Inequalities + variable bounds** are handled by a PHR augmented
   Lagrangian: outer iterations update multipliers and a per-lane penalty;
   the inner iLQR minimizes the AL objective.
@@ -34,11 +36,15 @@ import torch
 
 from robot_mpcs_tpu_torch.config import SolverConfiguration
 from robot_mpcs_tpu_torch.models.components import BARRIER_EPS
+from robot_mpcs_tpu_torch.models.dynamics import dynamics_jacobians
+from robot_mpcs_tpu_torch.ops.linalg_small import chol_solve_unrolled
+from robot_mpcs_tpu_torch.ops.riccati_batched import riccati_backward_batched, riccati_sweep
 from robot_mpcs_tpu_torch.ops.riccati_packed import (
     detect_structure,
     riccati_backward_packed,
 )
 from robot_mpcs_tpu_torch.solver.types import SolveResult
+from robot_mpcs_tpu_torch.utils.devices import resolve_device
 
 
 class StageFunctions(NamedTuple):
@@ -53,7 +59,9 @@ class StageFunctions(NamedTuple):
     """
 
     dynamics: Callable  # F(x, u) -> x_next
-    dyn_jac: Union[None, Tuple]  # (A, B) build-time constants, or None
+    #: (A, B) build-time constants, a batched fn(x, u) -> (A, Bu), or None
+    #: (differentiate ``dynamics``)
+    dyn_jac: Union[None, Tuple, Callable]
     q_rows: Callable
     aff_rows: Callable
     weights_split: Callable
@@ -64,6 +72,15 @@ def _al_penalty(c: torch.Tensor, lam: torch.Tensor, mu: torch.Tensor) -> torch.T
     summed over the last axis; ``mu`` broadcasts against ``c[..., 0]``."""
     active = torch.clamp(lam - mu[..., None] * c, min=0.0)
     return (0.5 / mu) * torch.sum(active * active - lam * lam, dim=-1)
+
+
+def riccati_backward_scan(lx, lw, lxx, lxw, lww, A, Bm, reg):
+    """The JAX package's stage-scan backward sweep (al_ilqr.py:485-535),
+    batch-first: ``riccati_sweep`` with the unrolled Cholesky stage solve
+    (``ops/linalg_small``, which the JAX package uses for every nw <= 24,
+    i.e. every robot model here). Inputs and outputs as
+    ``riccati_backward_batched``."""
+    return riccati_sweep(lx, lw, lxx, lxw, lww, A, Bm, reg, chol_solve_unrolled)
 
 
 def build_solver(
@@ -81,40 +98,19 @@ def build_solver(
     q_seg: Tuple[int, int, int],
     aff_seg: Tuple[int, int, int],
     S_aff,
-    device=None,
+    device="cuda",
 ):
     """Build ``solve(xinit, params, z0, lam0) -> SolveResult`` for a batch:
     ``xinit (B, nx)``, ``params (B, N, npar)``, ``z0 (B, N, nx+ns+nu)`` (its
     ``[s, u]`` tail seeds the controls), ``lam0 (B, N, n_con)`` (multiplier
-    warm start). Tensors are moved to ``device`` (default: the CPU).
+    warm start). Tensors are moved to ``device`` (default: the CUDA card;
+    pass ``"cpu"`` for the CPU).
     """
     cfg = cfg or SolverConfiguration()
-    dev = torch.device(device) if device is not None else torch.device("cpu")
+    dev = resolve_device(device)
     nw = ns + nu
     nv = nx + nw
     fdev = dict(dtype=torch.float32, device=dev)
-
-    if cfg.riccati_backend == "scan":
-        raise NotImplementedError(
-            "riccati_backend='scan' (the JAX package's stage scan, al_ilqr.py:485-535) "
-            "is not ported yet: it comes with riccati_backward_batched in the next slice"
-        )
-    packed = None
-    if isinstance(stage.dyn_jac, tuple):
-        packed = detect_structure(
-            np.asarray(stage.dyn_jac[0]),
-            np.concatenate(
-                [np.zeros((nx, ns)), np.asarray(stage.dyn_jac[1], np.float64)], axis=1
-            ),
-            nx=nx,
-            ns=ns,
-        )
-    if packed is None:
-        raise NotImplementedError(
-            "dynamics without the holonomic block structure need the general "
-            "Riccati sweep (riccati_backward_batched), which is the next slice of the port"
-        )
-    a_s, b1_s, b2_s = packed
 
     qr, qb, qc = q_seg
     ar, ab, ac = aff_seg
@@ -146,6 +142,62 @@ def build_solver(
     C_OFF = torch.zeros((N, n_con), **fdev)
     if pinned.any():
         C_OFF[0, torch.as_tensor(np.where(pinned)[0], device=dev)] = 1e6
+
+    # ---------------- dynamics Jacobians (al_ilqr.py:439-464) ---------------
+    # Stage N-1 has no outgoing dynamics: its A = B = 0 (al_ilqr.py:696-699).
+    # The slack columns of B are zero.
+
+    if isinstance(stage.dyn_jac, tuple):
+        A_np = np.asarray(stage.dyn_jac[0], np.float32)
+        B_np = np.concatenate(
+            [np.zeros((nx, ns), np.float32), np.asarray(stage.dyn_jac[1], np.float32)], 1
+        )
+        A_const = torch.as_tensor(np.broadcast_to(A_np, (N, nx, nx)).copy(), **fdev)
+        B_const = torch.as_tensor(np.broadcast_to(B_np, (N, nx, nw)).copy(), **fdev)
+        A_const[-1] = 0.0
+        B_const[-1] = 0.0
+
+        def all_dyn_jacobians(X, W):
+            """Batch-constant dynamics: ``(A (N, nx, nx), B (N, nx, nw))``."""
+            return A_const, B_const
+
+    else:
+        jac_fn = stage.dyn_jac or dynamics_jacobians(stage.dynamics)
+
+        def all_dyn_jacobians(X, W):
+            """Per-lane ``(A (B, N, nx, nx), B (B, N, nx, nw))``."""
+            A, Bu = jac_fn(X[:, :-1], W[:, :-1, ns:])
+            Bsz = X.shape[0]
+            A = torch.cat([A, A.new_zeros((Bsz, 1, nx, nx))], 1)
+            Bu = torch.cat([Bu, Bu.new_zeros((Bsz, 1, nx, nu))], 1)
+            return A, torch.cat([Bu.new_zeros((Bsz, N, nx, ns)), Bu], -1)
+
+    # ---------------- backward sweep dispatch (al_ilqr.py:537-634) ----------
+    # Unlike the JAX package, a shape the CUDA kernel has no instantiation
+    # for raises on the card instead of falling back to the scan (which the
+    # caller can choose with riccati_backend="scan").
+
+    packed = None
+    if isinstance(stage.dyn_jac, tuple) and cfg.riccati_backend != "scan":
+        packed = detect_structure(A_np, B_np, nx=nx, ns=ns)
+    if packed is not None:
+        a_s, b1_s, b2_s = packed
+
+        def backward(X, W, lx, lw, lxx, lxw, lww, reg):
+            """Structured sweep: the kernel bakes the holonomic (A, B) in, and
+            its zero terminal value function is the stage N-1 A = B = 0."""
+            return riccati_backward_packed(
+                lx, lw, lxx, lxw, lww, reg,
+                N=N, nx=nx, nw=nw, ns=ns, a=a_s, b1=b1_s, b2=b2_s,
+            )
+
+    else:
+
+        def backward(X, W, lx, lw, lxx, lxw, lww, reg):
+            A, Bm = all_dyn_jacobians(X, W)
+            if cfg.riccati_backend == "scan":
+                return riccati_backward_scan(lx, lw, lxx, lxw, lww, A, Bm, reg)
+            return riccati_backward_batched(lx, lw, lxx, lxw, lww, A, Bm, reg, N=N, nx=nx, nw=nw)
 
     # ---------------- stage-level pieces (leading dims (B, N)) --------------
 
@@ -236,14 +288,6 @@ def build_solver(
             H[..., nx:, nx:].contiguous(),
         )
 
-    def backward(lx, lw, lxx, lxw, lww, reg):
-        """Structured Riccati sweep; the stage N-1 A = B = 0 convention is the
-        kernel's zero terminal value function."""
-        return riccati_backward_packed(
-            lx, lw, lxx, lxw, lww, reg,
-            N=N, nx=nx, nw=nw, ns=ns, a=a_s, b1=b1_s, b2=b2_s,
-        )
-
     def rollout(xinit, W):
         """Open-loop rollout: X[:, 0] = xinit, X[:, k+1] = F(X[:, k], U[:, k])."""
         xs = [xinit]
@@ -290,7 +334,7 @@ def build_solver(
             if not bool(active.any()):
                 break
             lx, lw, lxx, lxw, lww = stage_expansion_blocks(X, W, P, lam, mu)
-            k_ff, K, failed = backward(lx, lw, lxx, lxw, lww, reg)
+            k_ff, K, failed = backward(X, W, lx, lw, lxx, lxw, lww, reg)
             gn_step = torch.amax(torch.abs(k_ff), dim=(1, 2))
             # tiny Newton step: no search needed (the lane is declared done
             # below); near-stationary: probe only alpha = 1
@@ -448,4 +492,6 @@ def build_solver(
             violation0_raw=violation0_raw,
         )
 
+    # exposed for white-box tests, as the JAX package's ``_internals``
+    solve._internals = {"all_dyn_jacobians": all_dyn_jacobians}
     return solve

@@ -33,11 +33,10 @@ from robot_mpcs_tpu.parallel.fleet import FleetRunner as JaxRunner
 from robot_mpcs_tpu.parallel.fleet import random_fleet_scenario as jax_scenario
 from robot_mpcs_tpu.parallel.mesh import make_mesh
 from robot_mpcs_tpu_torch import interop
-from robot_mpcs_tpu_torch.config import Setup, load_setup, panda_setup
+from robot_mpcs_tpu_torch.config import Setup, boxer_setup, panda_setup
 from robot_mpcs_tpu_torch.models.problem import MpcProblem
 from robot_mpcs_tpu_torch.parallel.fleet import FleetRunner, random_fleet_scenario
-
-from tests.conftest import config_path
+from robot_mpcs_tpu_torch.parallel.fleet_group import FleetGroup
 
 torch.set_num_threads(2)
 
@@ -49,6 +48,10 @@ SAMPLER = dict(  # the panda sampler of bench.py:52-60
     reachable_goals=True,
 )
 RUNNER_KW = dict(compaction_ratio=2, kick_scale=0.0)  # rescue tier on, no random kick
+BOXER_SAMPLER = dict(  # bench.py:70-77
+    goal_box=((-2.0, -2.0, 0.0), (2.0, 2.0, 0.0)),
+    obstacle_box=((5.0, 5.0, 0.0), (6.0, 6.0, 0.0)),
+)
 NU0 = 14  # first control column of z = [x (14), u (7)]
 
 
@@ -89,7 +92,9 @@ def jax_solve(problems):
 def _both_solves(problems, jax_solve, xinit, params, z0, lam0):
     tp, _ = problems
     res_j = jax_solve(xinit, params, z0, lam0)
-    res_t = tp.build_solver()(*interop.solver_inputs_from_numpy(xinit, params, z0, lam0))
+    res_t = tp.build_solver(device="cpu")(
+        *interop.solver_inputs_from_numpy(xinit, params, z0, lam0)
+    )
     flag_j, flag_t = np.asarray(res_j.exitflag), res_t.exitflag.numpy()
     assert int(np.sum(flag_j == flag_t)) >= B - 2, (flag_j, flag_t)
     both = (flag_j == 1) & (flag_t == 1)
@@ -135,7 +140,7 @@ def test_cold_solve_matches_jax(problems, jax_run, jax_solve):
 
 def test_fleet_matches_jax(problems, jax_run):
     tp, _ = problems
-    runner = FleetRunner(tp, B, **RUNNER_KW)
+    runner = FleetRunner(tp, B, device="cpu", **RUNNER_KW)
     scen = interop.scenario_from_numpy(jax_run["xinit"], jax_run["params"])
     state = runner.init_state(scen)
     for i in range(STEPS):
@@ -158,7 +163,7 @@ def test_fault_injection_brakes_and_resets(problems, jax_run):
     tp, _ = problems
     params = jax_run["params"].copy()
     params[3] = np.nan
-    runner = FleetRunner(tp, B, **RUNNER_KW)
+    runner = FleetRunner(tp, B, device="cpu", **RUNNER_KW)
     scen = interop.scenario_from_numpy(jax_run["xinit"], params)
     state = runner.init_state(scen)
     new, m = runner.step(state, scen)
@@ -185,10 +190,44 @@ def test_interop_round_trip_names_dtypes(jax_run):
     np.testing.assert_array_equal(back["params"], jax_run["params"])
 
 
-def test_unported_paths_raise(problems):
+@pytest.mark.parametrize("case", ["panda_scan", "boxer_auto", "boxer_scan"])
+def test_scan_backend_and_boxer_solve_on_cpu(problems, jax_run, case):
+    """The stage-scan backend and the diff-drive problem build and solve on
+    the CPU; the panda scan solve meets the warm-start bars of
+    ``_both_solves`` against the JAX solver (tests/test_torch_boxer_fleet.py
+    holds the boxer solve against JAX)."""
     tp, _ = problems
-    with pytest.raises(NotImplementedError, match="riccati_backward_batched"):
-        tp.build_solver(dataclasses.replace(tp.setup.solver, riccati_backend="scan"))
-    boxer = MpcProblem(load_setup(config_path("boxerMpc.yaml")))
-    with pytest.raises(NotImplementedError, match="riccati_backward_batched"):
-        boxer.build_solver()
+    if case.startswith("boxer"):
+        tp = MpcProblem(Setup.from_dict(boxer_setup()))
+    cfg = dataclasses.replace(tp.setup.solver, riccati_backend=case.split("_")[1])
+    solve = tp.build_solver(cfg, device="cpu")
+    dims = tp.dims
+    if case == "panda_scan":
+        s = jax_run["states"][0]
+        inputs = (s["x"], jax_run["params"], s["z_warm"], s["lam"])
+    else:
+        scen = random_fleet_scenario(tp, B, seed=0, **BOXER_SAMPLER)
+        xinit = scen.xinit.numpy()
+        z0 = np.zeros((B, dims.N, dims.nz), np.float32)
+        z0[:, :, : dims.nx] = xinit[:, None, :]
+        inputs = (xinit, scen.params.numpy(), z0, np.zeros((B, dims.N, tp.n_con), np.float32))
+    res = solve(*interop.solver_inputs_from_numpy(*inputs))
+    assert res.z.shape == (B, dims.N, dims.nz) and torch.isfinite(res.z).all()
+    assert torch.all(res.exitflag >= 0) and torch.any(res.exitflag == 1)
+    assert torch.all(res.violation[res.exitflag == 1] <= 1e-4)
+    if case == "panda_scan":
+        assert int((res.exitflag == 1).sum()) >= B - 2
+
+
+def test_entry_points_default_to_cuda(problems):
+    """With no device the entry points ask for the card; without CUDA they
+    raise instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is available: the default device is usable here")
+    tp, _ = problems
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        FleetRunner(tp, B)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tp.build_solver()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        FleetGroup({"panda": (tp, B)})

@@ -20,9 +20,16 @@ from robot_mpcs_tpu.models.dynamics import constant_dynamics_jacobians as jax_co
 from robot_mpcs_tpu.models.dynamics import make_discrete_dynamics as jax_discrete
 from robot_mpcs_tpu.models.problem import MpcProblem as JaxProblem
 from robot_mpcs_tpu.ops.riccati_packed import detect_structure as jax_detect
-from robot_mpcs_tpu_torch.config import Setup, load_setup, panda_setup
+from robot_mpcs_tpu_torch.config import (
+    Setup,
+    boxer_setup,
+    load_setup,
+    panda_setup,
+    point_robot_setup,
+)
 from robot_mpcs_tpu_torch.models.dynamics import (
     constant_dynamics_jacobians,
+    dynamics_jacobians,
     make_discrete_dynamics,
 )
 from robot_mpcs_tpu_torch.models.problem import MpcProblem
@@ -85,6 +92,20 @@ def test_panda_setup_equals_yaml():
     raw["mpc"]["weights"].update(bench.CLASS_SPECS["panda"]["weights"])
     assert panda_setup() == raw
     assert Setup.from_dict(panda_setup()).to_dict() == Setup.from_dict(raw).to_dict()
+
+
+@pytest.mark.parametrize(
+    "name,make", [("pointRobot", point_robot_setup), ("boxer", boxer_setup)]
+)
+def test_fleet_setups_equal_yaml(name, make):
+    """The dicts the card runs without PyYAML are the example configs with
+    the fleet benchmark's weight overrides (bench.py:48-77)."""
+    import bench
+
+    with open(config_path(bench.CLASS_SPECS[name]["config"])) as f:
+        raw = yaml.safe_load(f)
+    raw["mpc"]["weights"].update(bench.CLASS_SPECS[name]["weights"])
+    assert make() == raw
 
 
 def test_dims_and_param_map_equal_jax(problems):
@@ -162,3 +183,47 @@ def test_split_callbacks_match_jax(problems):
     )
     for w_t, w_j in zip(ts["weights_split"](pt), jax.vmap(js["weights_split"])(p)):
         np.testing.assert_allclose(w_t.numpy(), np.asarray(w_j), atol=ATOL)
+
+
+@pytest.mark.parametrize("slack", [False, True])
+def test_diffdrive_dynamics_jacobians_match_jax(slack):
+    """Boxer's per-stage (A, B) as the solver builds them, against the JAX
+    solver's ``all_dyn_jacobians`` (jax.jacfwd per stage) on the same (X, W):
+    the slack columns of B are zero and stage N-1 has A = B = 0."""
+    d = boxer_setup()
+    d["mpc"]["slack"] = slack
+    tp, jp = MpcProblem(Setup.from_dict(d)), JaxProblem(JaxSetup.from_dict(d))
+    dims = tp.dims
+    rng = np.random.default_rng(3)
+    X = rng.normal(size=(4, dims.N, dims.nx)).astype(np.float32)
+    W = rng.normal(size=(4, dims.N, dims.ns + dims.nu)).astype(np.float32)
+    A_j, B_j = jax.vmap(jp.build_solver()._internals["all_dyn_jacobians"])(X, W)
+    A_t, B_t = tp.build_solver(device="cpu")._internals["all_dyn_jacobians"](
+        torch.as_tensor(X), torch.as_tensor(W)
+    )
+    assert A_t.shape == (4, dims.N, dims.nx, dims.nx)
+    assert B_t.shape == (4, dims.N, dims.nx, dims.ns + dims.nu)
+    np.testing.assert_allclose(A_t.numpy()[:, :-1], np.asarray(A_j)[:, :-1], atol=ATOL)
+    np.testing.assert_allclose(B_t.numpy()[:, :-1], np.asarray(B_j)[:, :-1], atol=ATOL)
+    assert torch.all(A_t[:, -1] == 0) and torch.all(B_t[:, -1] == 0)
+    assert torch.all(B_t[..., : dims.ns] == 0)
+
+
+@pytest.mark.parametrize("integrator", ["euler", "erk2", "erk4"])
+def test_diffdrive_jacobians_by_integrator_match_jax(integrator):
+    """``dynamics_jacobians`` (the solver's diff-drive Jacobians: forward-mode
+    autodiff over any leading dims) against ``jax.jacfwd`` of the JAX
+    package's discrete dynamics, for each integrator."""
+    name = "boxerMpc.yaml"
+    dims = MpcProblem(load_setup(config_path(name))).dims
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(3, 5, dims.nx)).astype(np.float32)
+    u = rng.normal(size=(3, 5, dims.nu)).astype(np.float32)
+    F_j = jax_discrete(JaxProblem(jax_load_setup(config_path(name))).dims, 0.1, integrator, 4)
+    jac_j = jax.vmap(jax.vmap(jax.jacfwd(F_j, argnums=(0, 1))))
+    A_j, B_j = jac_j(jnp.asarray(x), jnp.asarray(u))
+    F = make_discrete_dynamics(dims, 0.1, integrator, 4)
+    A, Bu = dynamics_jacobians(F)(torch.as_tensor(x), torch.as_tensor(u))
+    assert A.shape == (3, 5, dims.nx, dims.nx) and Bu.shape == (3, 5, dims.nx, dims.nu)
+    np.testing.assert_allclose(A.numpy(), np.asarray(A_j), atol=ATOL)
+    np.testing.assert_allclose(Bu.numpy(), np.asarray(B_j), atol=ATOL)

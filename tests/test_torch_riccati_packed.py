@@ -16,6 +16,8 @@ import torch
 
 from robot_mpcs_tpu.ops.riccati_packed import detect_structure as jax_detect
 from robot_mpcs_tpu.ops.riccati_packed import riccati_backward_packed as jax_packed
+from robot_mpcs_tpu_torch.ops import _build
+from robot_mpcs_tpu_torch.ops import riccati_batched as rb
 from robot_mpcs_tpu_torch.ops import riccati_packed as rp
 from tests.test_riccati_packed import _random_data, _scan_backward, _structured_dyn
 
@@ -101,11 +103,12 @@ def test_non_cpu_non_cuda_tensor_raises():
         rp.riccati_backward_packed(*data, N=3, nx=6, nw=3, ns=0, a=0.1, b1=0.005, b2=0.1)
 
 
-def test_missing_nvcc_raises(tmp_path, monkeypatch):
-    """No nvcc: the build raises instead of falling back."""
-    monkeypatch.setattr(rp, "_lib", None)
-    monkeypatch.setattr(rp, "_build_dir", lambda: tmp_path)
+@pytest.mark.parametrize("module", [rp, rb], ids=["packed", "batched"])
+def test_missing_nvcc_raises(module, tmp_path, monkeypatch):
+    """No nvcc: each kernel's build raises instead of falling back."""
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "build_dir", lambda: tmp_path)
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        rp.build_kernel()
+        module.build_kernel()

@@ -84,7 +84,9 @@ def test_cold_solve_matches_jax(case):
     lam0 = np.zeros((B, dims.N, tp.n_con), np.float32)
 
     res_j = jax.jit(jax.vmap(jp.build_solver()))(xinit, params, z0, lam0)
-    res_t = tp.build_solver()(*interop.solver_inputs_from_numpy(xinit, params, z0, lam0))
+    res_t = tp.build_solver(device="cpu")(
+        *interop.solver_inputs_from_numpy(xinit, params, z0, lam0)
+    )
     flag_j, flag_t = np.asarray(res_j.exitflag), res_t.exitflag.numpy()
     assert int(np.sum(flag_j == flag_t)) >= B - 1, (flag_j, flag_t)
     both = (flag_j == 1) & (flag_t == 1)
