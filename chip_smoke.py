@@ -8,46 +8,48 @@ Phases, each of which fails the run (non-zero exit, no result line):
 1. device: the card's name and power limit from ``nvidia-smi``; no CUDA
    device (or no port package beside this script) exits non-zero.
 2. build: both CUDA sources (``csrc/riccati_packed.cu``,
-   ``csrc/riccati_batched.cu``) compiled at once, one ``nvcc`` each, with
-   each instantiation's registers and spills (``-Xptxas -v``) printed.
+   ``csrc/riccati_batched.cu``, each including ``csrc/riccati_common.cuh``)
+   compiled at once, one ``nvcc`` each, with each instantiation's
+   registers, spills and shared memory (``-Xptxas -v``) printed.
 3. kernels, each held against its plain PyTorch version on the same CUDA
-   tensors:
+   tensors, the structured sweep at rtol 2e-3 / atol 2e-5, the general one
+   at rtol 2e-3 / atol 2e-4 (``tests/test_riccati_pallas.py:70-75``):
 
-   * the structured sweep at the test dims (3, 0, 6), (3, 1, 5), the
-     pointRobot group shape (B=1024, N=20, nx=6, nw=3), the panda fleet
-     shape (B=4096, N=20, nx=14, nw=7) and panda with a slack column
-     (nw=8), at rtol 2e-3 / atol 2e-5; a NaN-poisoned lane must be the only
-     failed lane. Times both at the panda shape.
-   * the general sweep at (nx, nw, N, B) = (6, 3, 5, 5), (14, 7, 20, 64),
-     (8, 2, 10, 1024) (the boxer group shape), (8, 2, 10, 4096) and
-     (8, 3, 10, 64) with per-lane A/B, and
-     (8, 2, 10, 4096) with batch-constant A/B, at rtol 2e-3 / atol 2e-4
-     (``tests/test_riccati_pallas.py:70-75``); a lane with negative-definite
-     ``lww`` and a NaN-poisoned lane must each fail alone, the first with
-     all-zero gains. Times both at the boxer group shape (B=1024, N=10), the
-     boxer shape at B=4096 and (14, 7, 20) at B=4096, per-lane A/B.
+   * at every shape the main paths launch them at (``PACKED_SHAPES``:
+     panda's and pointRobot's phase 1 and rescue tier, alone and in the
+     group; ``GENERAL_SHAPES``: boxer's phase 1 and rescue tier, boxer at
+     B=4096 with per-lane and batch-constant A/B, (14, 7, 20) at B=4096),
+     each also timed and printed as a ``kernel_shape`` line;
+   * the structured sweep at the test dims (3, 0, 6), (3, 1, 5) and panda
+     with a slack column (nw=8); a NaN-poisoned lane must be the only
+     failed lane;
+   * the general sweep at (nx, nw, N, B) = (6, 3, 5, 5), (14, 7, 20, 64)
+     and (8, 3, 10, 64); a lane with negative-definite ``lww`` and a
+     NaN-poisoned lane must each fail alone, the first with all-zero gains.
 
    A kernel's time (``ms``) is its device time per launch from
    ``torch.profiler`` over 20 launches; ``call_ms`` and ``plain_ms`` are
    CUDA events around one wrapper call (host launch path included), median
    after warm-up. Each kernel's bound is the larger of its bytes over
-   3.35 TB/s and its fp32 flops over 67 TFLOP/s.
+   3.35 TB/s and its fp32 flops over 67 TFLOP/s. The kernels line carries
+   each kernel at its phase-1 shape (panda B=4096; boxer B=1024).
 4. panda path: the panda fleet (``examples/config/pandaMpc.yaml`` with the
    fleet benchmark's repulsion weight), B=4096 random scenarios from seed 0,
    through ``FleetRunner(..., device="cuda")`` for 6 closed-loop steps with
    the default rescue tier and kick. The structured kernel's launch count
    must grow, every metric must be finite and the last step's converged
    fraction must be >= 0.9 (a floor under the 0.956-0.971 the JAX package
-   reaches). Two more steps then split the step's wall time into phase-1
-   solve, rescue-tier solve and the rest, and one step under
-   ``torch.profiler`` gives the device's busy time, kernel count and idle
-   share.
+   reaches). Launches per step are printed by kernel and batch size. Two
+   more steps then split the step's wall time into phase-1 solve,
+   rescue-tier solve and the rest, and one step under ``torch.profiler``
+   gives the device's busy time, kernel count and idle share.
 5. group path: ``FleetGroup`` of pointRobot 1024, panda 2048 and boxer 1024
    lanes (``mixed_fleet_scenarios(seed=0)`` with bench.py's per-class
-   samplers and weights) for 5 closed-loop steps. Both kernels' launch
-   counts must grow (the structured one from panda and pointRobot, the
-   general one from boxer), every per-class metric must be finite and each
-   class's last-step converged fraction >= 0.9. Prints each class's
+   samplers and weights) for 5 closed-loop steps (launches per step printed
+   by kernel and batch size). Both kernels' launch counts must grow (the
+   structured one from panda and pointRobot, the general one from boxer),
+   every per-class metric must be finite and each class's last-step
+   converged fraction >= 0.9. Prints each class's
    synchronized wall time per step, one profiled group step, and one
    profiled call of the solver's diff-drive Jacobians (forward-mode
    autodiff, ``dynamics_jacobians``).
@@ -62,7 +64,9 @@ then the result line ``{"ok": true, "device": {...}}`` last.
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
+import contextlib
 import json
 import os
 import subprocess
@@ -92,6 +96,26 @@ GROUP_SAMPLERS = {
     ),
 }
 GROUP_SIZES = {"pointRobot": 1024, "panda": 2048, "boxer": 1024}
+#: the shapes the main paths launch the structured kernel at, (B, N, n, ns):
+#: each fleet's phase 1 at full width and its rescue tier at 1/8 width
+PACKED_SHAPES = {
+    "panda phase 1": (BATCH, 20, 7, 0),
+    "panda rescue": (BATCH // 8, 20, 7, 0),
+    "group panda phase 1": (GROUP_SIZES["panda"], 20, 7, 0),
+    "group panda rescue": (GROUP_SIZES["panda"] // 8, 20, 7, 0),
+    "group pointRobot phase 1": (GROUP_SIZES["pointRobot"], 20, 3, 0),
+    "group pointRobot rescue": (GROUP_SIZES["pointRobot"] // 8, 20, 3, 0),
+}
+#: ... and the general kernel, (B, N, nx, nw, per-lane A/B): boxer's phase 1
+#: and rescue tier, then boxer at B=4096 with per-lane and batch-constant
+#: A/B, and (14, 7) with per-lane A/B (no robot model runs it)
+GENERAL_SHAPES = {
+    "group boxer phase 1": (GROUP_SIZES["boxer"], 10, 8, 2, True),
+    "group boxer rescue": (GROUP_SIZES["boxer"] // 8, 10, 8, 2, True),
+    "boxer B=4096": (BATCH, 10, 8, 2, True),
+    "boxer B=4096 batch-constant": (BATCH, 10, 8, 2, False),
+    "(14, 7) B=4096": (BATCH, 20, 14, 7, True),
+}
 RTOL, ATOL = 2e-3, 2e-5
 GEN_RTOL, GEN_ATOL = 2e-3, 2e-4
 #: H100 SXM datasheet peaks: HBM bytes/s, fp32 flop/s
@@ -162,14 +186,19 @@ def sweep_bound(B, N, nx, nw, dyn):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_device_ms(torch, fn, kernel_name, reps=20):
+def kernel_device_ms(torch, fn, kernel_name, reps=20, windows=3):
     """Device time of one launch of the kernel whose name contains
     ``kernel_name``: its CUDA time summed by ``torch.profiler`` over ``reps``
     calls of ``fn``, over ``reps``. Unlike CUDA events around a call, this
     leaves out the host's launch path, which a kernel of tens of
-    microseconds is shorter than."""
+    microseconds is shorter than. A window in which the profiler recorded
+    no device event at all (seen once in ~400 windows on an H100) is taken
+    again, up to ``windows`` times."""
     fn()
-    _, total = profile_windows(torch, {kernel_name: lambda: [fn() for _ in range(reps)]}, [kernel_name])
+    for _ in range(windows):
+        _, total = profile_windows(torch, {kernel_name: lambda: [fn() for _ in range(reps)]}, [kernel_name])
+        if total["device_events"]:
+            break
     ms = total[f"{kernel_name}_ms"] / reps
     check(ms > 0, f"the profiler saw no {kernel_name} launches")
     return ms
@@ -192,6 +221,52 @@ def time_ms(fn, torch, reps=20, warmup=3):
     return float(np.median(times))
 
 
+def time_kernel_shapes(torch, rp, rb, plain=True):
+    """Each kernel at each of its main-path shapes (``PACKED_SHAPES``,
+    ``GENERAL_SHAPES``): held against its plain version on the same CUDA
+    tensors (rtol 2e-3, atol 2e-5 structured / 2e-4 general), then timed:
+    ``ms`` device time per launch (``torch.profiler``, 20 launches),
+    ``call_ms`` CUDA events around one wrapper call, ``plain_ms`` the plain
+    version (skipped with ``plain=False``), ``bound_ms`` from
+    ``sweep_bound``. Prints and returns one record per shape."""
+    a, b1, b2 = 0.05, 0.00125, 0.05  # panda's dt = 0.05 double integrator
+
+    def cases():  # (module, label, inputs, keywords, dynamics), inputs made one shape at a time
+        for label, (B, N, n, ns) in PACKED_SHAPES.items():
+            yield (rp, label, random_sweep_inputs(B, N, 2 * n, ns + n, seed=1),
+                   dict(N=N, nx=2 * n, nw=ns + n, ns=ns, a=a, b1=b1, b2=b2), "packed")
+        for label, (B, N, nx, nw, per_lane) in GENERAL_SHAPES.items():
+            yield (rb, label, random_general_inputs(B, N, nx, nw, per_lane, seed=1),
+                   dict(N=N, nx=nx, nw=nw), "batched" if per_lane else "constant")
+
+    records = []
+    for module, label, arrays, kw, dyn in cases():
+        name = "riccati_backward_packed" if module is rp else "riccati_backward_batched"
+        sweep, reference = getattr(module, name), getattr(module, f"{name}_reference")
+        kernel, atol = ("riccati_packed_kernel", ATOL) if module is rp else ("riccati_batched_kernel", GEN_ATOL)
+        args = [torch.as_tensor(v, device="cuda") for v in arrays]
+        B = args[0].shape[0]
+        k, K, f = sweep(*args, **kw)
+        k_ref, K_ref, f_ref = reference(*args, **kw)
+        torch.cuda.synchronize()
+        err = max(float((k - k_ref).abs().max()), float((K - K_ref).abs().max()))
+        check(torch.allclose(k, k_ref, rtol=RTOL, atol=atol) and torch.allclose(K, K_ref, rtol=RTOL, atol=atol),
+              f"{name} differs from its plain version at {label}, B={B}: max abs err {err:.3e}")
+        check(not bool(f.any()) and not bool(f_ref.any()), f"{name}: spurious failed lanes at {label}")
+        call = lambda: sweep(*args, **kw)  # noqa: E731
+        bound_ms, bound_by = sweep_bound(B, kw["N"], kw["nx"], kw["nw"], dyn)
+        rec = {
+            "kernel": name, "shape": label, "B": B, "N": kw["N"], "nx": kw["nx"], "nw": kw["nw"],
+            "dyn": dyn, "max_abs_err": err, "ms": kernel_device_ms(torch, call, kernel),
+            "call_ms": time_ms(call, torch),
+            "plain_ms": time_ms(lambda: reference(*args, **kw), torch, reps=10) if plain else None,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+        print(json.dumps({"kernel_shape": rec}), flush=True)
+        records.append(rec)
+    return records
+
+
 def build_phase():
     """Compile both kernel sources at once (one nvcc each) and print what
     ``-Xptxas -v`` says about each instantiation."""
@@ -209,13 +284,33 @@ def build_phase():
                 print(f"  {line.strip()}", flush=True)
 
 
-def packed_kernel_phase(torch, rp):
-    """Compare and time the structured Riccati kernel; returns its record."""
+def kernel_record(name, source, replaces, shapes, label):
+    """The kernels-line entry of one kernel: its numbers at ``label`` (the
+    phase-1 shape), its largest error over every shape it was compared at."""
+    rec = next(r for r in shapes if r["kernel"] == name and r["shape"] == label)
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": 0,
+        "max_abs_err": max(r["max_abs_err"] for r in shapes if r["kernel"] == name),
+        "ms": rec["ms"],
+        "kernel_ms": rec["ms"],
+        "call_ms": rec["call_ms"],
+        "plain_ms": rec["plain_ms"],
+        "bound_ms": rec["bound_ms"],
+        "bound_by": rec["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes a Riccati sweep
+    }
+
+
+def packed_kernel_phase(torch, rp, shapes):
+    """The structured Riccati kernel at the test dims and with a slack column
+    (the main path's shapes are compared in ``time_kernel_shapes``) and its
+    NaN-lane contract; returns its kernels-line record."""
     a, b1, b2 = 0.05, 0.00125, 0.05  # panda's dt = 0.05 double integrator
-    max_err = 0.0
-    # the test dims, pointRobot's group shape, the panda fleet shape, and
-    # panda with a slack column
-    for n, ns, N, B in ((3, 0, 6, 5), (3, 1, 5, 5), (3, 0, 20, 1024), (7, 0, 20, BATCH), (7, 1, 20, 64)):
+    for n, ns, N, B in ((3, 0, 6, 5), (3, 1, 5, 5), (7, 1, 20, 64)):
         nx, nw = 2 * n, ns + n
         args = [torch.as_tensor(v, device="cuda") for v in random_sweep_inputs(B, N, nx, nw)]
         kw = dict(N=N, nx=nx, nw=nw, ns=ns, a=a, b1=b1, b2=b2)
@@ -224,7 +319,6 @@ def packed_kernel_phase(torch, rp):
         torch.cuda.synchronize()
         for name, got, want in (("k_ff", k, k_ref), ("K", K, K_ref)):
             err = float((got - want).abs().max())
-            max_err = max(max_err, err)
             check(
                 torch.allclose(got, want, rtol=RTOL, atol=ATOL),
                 f"packed kernel {name} differs from the plain version at dims {(n, ns, N)}, "
@@ -241,60 +335,30 @@ def packed_kernel_phase(torch, rp):
     check(f.tolist() == [False, False, True, False], f"NaN lane contract: failed = {f.tolist()}")
     check(bool(torch.isfinite(k[[0, 1, 3]]).all()), "NaN lane leaked into healthy lanes")
     print("packed NaN-lane contract: only lane 2 failed", flush=True)
-    # time both at the panda shape
-    args = [torch.as_tensor(v, device="cuda") for v in random_sweep_inputs(BATCH, 20, 14, 7, seed=1)]
-    kw = dict(N=20, nx=14, nw=7, ns=0, a=a, b1=b1, b2=b2)
-    call = lambda: rp.riccati_backward_packed(*args, **kw)  # noqa: E731
-    ms = kernel_device_ms(torch, call, "riccati_packed_kernel")
-    call_ms = time_ms(call, torch)
-    plain_ms = time_ms(lambda: rp.riccati_backward_packed_reference(*args, **kw), torch, reps=10)
-    bound_ms, bound_by = sweep_bound(BATCH, 20, 14, 7, "packed")
-    print(f"packed sweep at B={BATCH}, N=20, nx=14, nw=7: kernel {ms:.4f} ms on the device, "
-          f"{call_ms:.4f} ms per call, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})",
-          flush=True)
-    return {
-        "name": "riccati_backward_packed",
-        "route": "cuda",
-        "source": "robot_mpcs_tpu_torch/csrc/riccati_packed.cu",
-        "replaces": "robot_mpcs_tpu/ops/riccati_packed.py:238",
-        "launches": 0,
-        "max_abs_err": max_err,
-        "ms": ms,
-        "kernel_ms": ms,
-        "call_ms": call_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,  # no single PyTorch call computes a Riccati sweep
-    }
+    return kernel_record("riccati_backward_packed", "robot_mpcs_tpu_torch/csrc/riccati_packed.cu",
+                         "robot_mpcs_tpu/ops/riccati_packed.py:238", shapes, "panda phase 1")
 
 
-def batched_kernel_phase(torch, rb):
-    """Compare and time the general Riccati kernel; returns its record."""
-    max_err = 0.0
-    cases = [
-        (6, 3, 5, 5, True), (14, 7, 20, 64, True), (8, 2, 10, 1024, True),
-        (8, 2, 10, 4096, True), (8, 3, 10, 64, True), (8, 2, 10, 4096, False),
-    ]
-    for nx, nw, N, B, batched_dyn in cases:
-        args = [torch.as_tensor(v, device="cuda")
-                for v in random_general_inputs(B, N, nx, nw, batched_dyn)]
+def batched_kernel_phase(torch, rb, shapes):
+    """The general Riccati kernel at the test dims and with a slack column
+    (the main path's shapes are compared in ``time_kernel_shapes``) and its
+    bad-lane contracts; returns its kernels-line record."""
+    for nx, nw, N, B in ((6, 3, 5, 5), (14, 7, 20, 64), (8, 3, 10, 64)):
+        args = [torch.as_tensor(v, device="cuda") for v in random_general_inputs(B, N, nx, nw)]
         kw = dict(N=N, nx=nx, nw=nw)
         k, K, f = rb.riccati_backward_batched(*args, **kw)
         k_ref, K_ref, f_ref = rb.riccati_backward_batched_reference(*args, **kw)
         torch.cuda.synchronize()
         for name, got, want in (("k_ff", k, k_ref), ("K", K, K_ref)):
             err = float((got - want).abs().max())
-            max_err = max(max_err, err)
             check(
                 torch.allclose(got, want, rtol=GEN_RTOL, atol=GEN_ATOL),
                 f"general kernel {name} differs from the plain version at "
-                f"(nx, nw, N, B)={(nx, nw, N, B)}, batched A/B {batched_dyn}: max abs err {err:.3e}",
+                f"(nx, nw, N, B)={(nx, nw, N, B)}: max abs err {err:.3e}",
             )
         check(not bool(f.any()) and not bool(f_ref.any()),
               f"spurious failed lanes at {(nx, nw, N, B)}")
-        print(f"general kernel vs plain at (nx, nw, N, B)={(nx, nw, N, B)}, "
-              f"{'per-lane' if batched_dyn else 'batch-constant'} A/B: max abs err "
+        print(f"general kernel vs plain at (nx, nw, N, B)={(nx, nw, N, B)}, per-lane A/B: max abs err "
               f"k_ff {float((k - k_ref).abs().max()):.3e}, K {float((K - K_ref).abs().max()):.3e}",
               flush=True)
     # a negative-definite lww lane fails alone with zero gains; so does a NaN lane
@@ -314,36 +378,39 @@ def batched_kernel_phase(torch, rb):
             check(bool((k[bad_lane] == 0).all() and (K[bad_lane] == 0).all()),
                   "negative-definite lane has non-zero gains")
         print(f"general {poison}-lane contract: only lane {bad_lane} failed", flush=True)
-    # times: the boxer group shape (the record), then boxer and (14, 7, 20) at B=4096
-    timings = {}
-    for nx, nw, N, B in ((8, 2, 10, 1024), (8, 2, 10, BATCH), (14, 7, 20, BATCH)):
-        args = [torch.as_tensor(v, device="cuda") for v in random_general_inputs(B, N, nx, nw, seed=1)]
-        kw = dict(N=N, nx=nx, nw=nw)
-        call = lambda: rb.riccati_backward_batched(*args, **kw)  # noqa: E731
-        ms = kernel_device_ms(torch, call, "riccati_batched_kernel")
-        call_ms = time_ms(call, torch)
-        plain_ms = time_ms(lambda: rb.riccati_backward_batched_reference(*args, **kw), torch, reps=10)
-        bound_ms, bound_by = sweep_bound(B, N, nx, nw, "batched")
-        timings[(nx, nw, N, B)] = (ms, call_ms, plain_ms, bound_ms, bound_by)
-        print(f"general sweep at B={B}, N={N}, nx={nx}, nw={nw}, per-lane A/B: kernel {ms:.4f} ms "
-              f"on the device, {call_ms:.4f} ms per call, plain {plain_ms:.4f} ms, "
-              f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
-    ms, call_ms, plain_ms, bound_ms, bound_by = timings[(8, 2, 10, 1024)]
-    return {
-        "name": "riccati_backward_batched",
-        "route": "cuda",
-        "source": "robot_mpcs_tpu_torch/csrc/riccati_batched.cu",
-        "replaces": "robot_mpcs_tpu/ops/riccati_pallas.py:189",
-        "launches": 0,
-        "max_abs_err": max_err,
-        "ms": ms,
-        "kernel_ms": ms,
-        "call_ms": call_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,  # no single PyTorch call computes a Riccati sweep
-    }
+    return kernel_record("riccati_backward_batched", "robot_mpcs_tpu_torch/csrc/riccati_batched.cu",
+                         "robot_mpcs_tpu/ops/riccati_pallas.py:189", shapes, "group boxer phase 1")
+
+
+@contextlib.contextmanager
+def launches_by_batch(steps):
+    """Tally the solver's kernel launches by kernel and batch size while the
+    block runs (its references to both wrappers are wrapped, and restored
+    after), and print them per step."""
+    from robot_mpcs_tpu_torch.solver import al_ilqr
+
+    tally = collections.Counter()
+    originals = {n: getattr(al_ilqr, n) for n in ("riccati_backward_packed", "riccati_backward_batched")}
+
+    def tallied(name, fn):
+        def wrapped(lx, *args, **kw):
+            before = fn.launches
+            out = fn(lx, *args, **kw)
+            tally[(name, lx.shape[0])] += fn.launches - before
+            return out
+        return wrapped
+
+    for name, fn in originals.items():
+        setattr(al_ilqr, name, tallied(name, fn))
+    try:
+        yield tally
+    finally:
+        for name, fn in originals.items():
+            setattr(al_ilqr, name, fn)
+    per_step = collections.defaultdict(dict)
+    for (name, B), count in sorted(tally.items()):
+        per_step[name][str(B)] = count / steps
+    print(json.dumps({"launches_per_step_by_batch": per_step}), flush=True)
 
 
 def profile_windows(torch, fns, kernel_names):
@@ -400,17 +467,18 @@ def path_phase(torch, rp):
     rp.riccati_backward_packed.launches = 0
     step_s = []
     metrics = None
-    for i in range(STEPS):
-        t1 = time.perf_counter()
-        state, metrics = runner.step(state, scen)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t1)
-        m = {k: float(v) for k, v in metrics._asdict().items()}
-        print(f"step {i}: {step_s[-1] * 1e3:.1f} ms, converged {m['converged_fraction']:.4f}, "
-              f"max_violation_converged {m['max_violation_converged']:.3e}, "
-              f"mean_goal_distance {m['mean_goal_distance']:.4f}, "
-              f"mean_iterations {m['mean_iterations']:.2f}", flush=True)
-        check(all(np.isfinite(v) for v in m.values()), f"non-finite metrics at step {i}: {m}")
+    with launches_by_batch(STEPS):
+        for i in range(STEPS):
+            t1 = time.perf_counter()
+            state, metrics = runner.step(state, scen)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t1)
+            m = {k: float(v) for k, v in metrics._asdict().items()}
+            print(f"step {i}: {step_s[-1] * 1e3:.1f} ms, converged {m['converged_fraction']:.4f}, "
+                  f"max_violation_converged {m['max_violation_converged']:.3e}, "
+                  f"mean_goal_distance {m['mean_goal_distance']:.4f}, "
+                  f"mean_iterations {m['mean_iterations']:.2f}", flush=True)
+            check(all(np.isfinite(v) for v in m.values()), f"non-finite metrics at step {i}: {m}")
     launches = rp.riccati_backward_packed.launches
     check(launches > 0, "the fleet step never launched the Riccati kernel")
     check(tuple(state.z_warm.shape) == (BATCH, problem.dims.N, problem.dims.nz), "state shape")
@@ -508,18 +576,20 @@ def group_phase(torch, rp, rb):
     rp.riccati_backward_packed.launches = 0
     rb.riccati_backward_batched.launches = 0
     metrics = None
-    for i in range(GROUP_STEPS):
-        states, metrics = group.step(states, scen)
-        per = {k: {f: float(v) for f, v in m._asdict().items()} for k, m in metrics.per_class.items()}
-        print(json.dumps({
-            "group_step": i,
-            **{f"{k}_step_ms": class_s[k][-1] * 1e3 for k in group.runners},
-            **{f"{k}_converged": per[k]["converged_fraction"] for k in per},
-            **{f"{k}_mean_goal_distance": per[k]["mean_goal_distance"] for k in per},
-            "overall_converged": float(metrics.overall.converged_fraction),
-        }), flush=True)
-        for k, m in per.items():
-            check(all(np.isfinite(v) for v in m.values()), f"non-finite {k} metrics at group step {i}: {m}")
+    with launches_by_batch(GROUP_STEPS):
+        for i in range(GROUP_STEPS):
+            states, metrics = group.step(states, scen)
+            per = {k: {f: float(v) for f, v in m._asdict().items()} for k, m in metrics.per_class.items()}
+            print(json.dumps({
+                "group_step": i,
+                **{f"{k}_step_ms": class_s[k][-1] * 1e3 for k in group.runners},
+                **{f"{k}_converged": per[k]["converged_fraction"] for k in per},
+                **{f"{k}_mean_goal_distance": per[k]["mean_goal_distance"] for k in per},
+                "overall_converged": float(metrics.overall.converged_fraction),
+            }), flush=True)
+            for k, m in per.items():
+                check(all(np.isfinite(v) for v in m.values()),
+                      f"non-finite {k} metrics at group step {i}: {m}")
     packed_launches = rp.riccati_backward_packed.launches
     batched_launches = rb.riccati_backward_batched.launches
     for name, runner in group.runners.items():
@@ -608,8 +678,9 @@ def main() -> int:
     t0 = time.perf_counter()
 
     build_phase()
-    packed = packed_kernel_phase(torch, rp)
-    batched = batched_kernel_phase(torch, rb)
+    shapes = time_kernel_shapes(torch, rp, rb)
+    packed = packed_kernel_phase(torch, rp, shapes)
+    batched = batched_kernel_phase(torch, rb, shapes)
     print(f"kernel phases done at {time.perf_counter() - t0:.1f} s", flush=True)
     panda, panda_scenario, packed["launches"] = path_phase(torch, rp)
     print(f"panda path done at {time.perf_counter() - t0:.1f} s", flush=True)

@@ -3,7 +3,8 @@
 Each ``csrc/*.cu`` source has a plain C entry point. ``load_library``
 compiles it with ``nvcc`` for ``sm_90a`` on first use into
 ``build/robot_mpcs_tpu_torch/`` beside the package, under a name that hashes
-the source, the nvcc flags and ``nvcc --version``, and loads it with
+the source and the headers it includes (``csrc/riccati_common.cuh``), the
+nvcc flags and ``nvcc --version``, and loads it with
 ``ctypes``. A missing ``nvcc`` or a failed build raises: no wrapper falls
 back to its plain version for a CUDA tensor.
 """
@@ -13,15 +14,17 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -50,17 +53,33 @@ def nvcc() -> str:
     )
 
 
+def source_files(source: Path) -> List[Path]:
+    """``source`` and every file it includes with ``#include "..."``, found
+    beside the including file, each once, in the order first reached."""
+    files: List[Path] = []
+    pending = [source]
+    while pending:
+        path = pending.pop(0)
+        if path in files:
+            continue
+        files.append(path)
+        pending += [path.parent / name for name in _INCLUDE.findall(path.read_text())]
+    return files
+
+
 def build_library(stem: str) -> Tuple[Path, str]:
-    """Compile ``csrc/<stem>.cu`` unless a library of the same hash (source,
-    flags, nvcc version) exists. Returns its path and the compiler's output
-    (``-Xptxas -v``: registers, spills, shared memory per instantiation),
-    empty when the library was already built."""
+    """Compile ``csrc/<stem>.cu`` unless a library of the same hash (the
+    source and the files it includes, flags, nvcc version) exists. Returns
+    its path and the compiler's output (``-Xptxas -v``: registers, spills,
+    shared memory per instantiation), empty when the library was already
+    built."""
     source = CSRC / f"{stem}.cu"
     compiler = nvcc()
     version = subprocess.run(
         [compiler, "--version"], capture_output=True, text=True, check=True
     ).stdout
-    key = source.read_bytes() + " ".join(NVCC_FLAGS).encode() + version.encode()
+    key = b"".join(p.read_bytes() for p in source_files(source))
+    key += " ".join(NVCC_FLAGS).encode() + version.encode()
     tag = hashlib.sha256(key).hexdigest()[:16]
     out_dir = build_dir()
     out = out_dir / f"lib{stem}_{tag}.so"

@@ -7,10 +7,12 @@ by the batch ``(N, ...)``. It carries the diff-drive (boxer) solve and any
 model without the holonomic block structure of ``ops/riccati_packed.py``.
 
 * On a CUDA tensor, ``riccati_backward_batched`` launches the hand-written
-  kernel of ``csrc/riccati_batched.cu`` (one thread per scenario, the stage
-  loop inside the thread; see the note at the top of that file), built and
-  loaded by ``ops/_build.py``. A missing ``nvcc``, a failed build or a shape
-  with no instantiation raises; there is no fallback.
+  kernel of ``csrc/riccati_batched.cu`` (a team of threads per scenario
+  that walks the stages in turn, each stage's data staged into shared
+  memory with coalesced asynchronous copies; see the note at the top of
+  that file), built and loaded by ``ops/_build.py``. A missing ``nvcc``, a
+  failed build or a shape with no instantiation raises; there is no
+  fallback.
 * On a CPU tensor it runs ``riccati_backward_batched_reference``, the plain
   batched PyTorch version of the same arithmetic (and the kernel's oracle).
 

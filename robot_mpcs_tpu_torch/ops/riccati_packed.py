@@ -7,10 +7,12 @@ solver verifies it at build time (``detect_structure``) and passes the three
 scalars, so every A/B product of the sweep collapses to O(nx^2) work.
 
 * On a CUDA tensor, ``riccati_backward_packed`` launches the hand-written
-  kernel of ``csrc/riccati_packed.cu`` (one thread per scenario, the stage
-  loop inside the thread; see the note at the top of that file for what
-  bounds it on an H100), built and loaded by ``ops/_build.py``. A missing
-  ``nvcc`` or a failed build raises; there is no fallback.
+  kernel of ``csrc/riccati_packed.cu`` (a team of threads per scenario that
+  walks the stages in turn, each stage's data staged into shared memory
+  with coalesced asynchronous copies while the previous stage computes;
+  see the note at the top of that file for what bounds it on an H100),
+  built and loaded by ``ops/_build.py``. A missing ``nvcc`` or a failed
+  build raises; there is no fallback.
 * On a CPU tensor it runs ``riccati_backward_packed_reference``, the plain
   batched PyTorch version of the same recursion (and the kernel's oracle).
 

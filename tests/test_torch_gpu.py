@@ -21,13 +21,20 @@ from robot_mpcs_tpu_torch.ops import riccati_packed as rp
 torch.set_num_threads(2)
 
 #: (n, ns, N, B): the test dims, pointRobot's group shape, the panda fleet
-#: shape, panda with a slack column
-CASES = [(3, 0, 6, 5), (3, 1, 5, 5), (3, 0, 20, 1024), (7, 0, 20, 4096), (7, 1, 20, 64)]
-#: (nx, nw, N, B, per-lane A/B): chip_smoke.py's general-sweep shapes
+#: shape, panda with a slack column, the panda rescue tier's shape
+CASES = [(3, 0, 6, 5), (3, 1, 5, 5), (3, 0, 20, 1024), (7, 0, 20, 4096), (7, 1, 20, 64),
+         (7, 0, 20, 512)]
+#: (nx, nw, N, B, per-lane A/B): chip_smoke.py's general-sweep shapes and
+#: boxer's rescue tier
 GENERAL_CASES = [
     (6, 3, 5, 5, True), (14, 7, 20, 64, True), (8, 2, 10, 1024, True),
     (8, 2, 10, 4096, True), (8, 3, 10, 64, True), (8, 2, 10, 4096, False),
+    (8, 2, 10, 128, True),
 ]
+#: (B, N): batches that are no multiple of a block's lanes (8 for 16-thread
+#: teams, 4 for 32-thread teams), and a one-stage horizon
+RAGGED = [(1, 20), (37, 20), (1023, 20), (37, 1)]
+ABC = dict(a=0.05, b1=0.00125, b2=0.05)
 
 
 def _need_card():
@@ -156,3 +163,98 @@ def test_entry_points_default_to_the_card():
     res = problem.build_solver()(scen.xinit, scen.params, z0, torch.zeros((16, dims.N, problem.n_con)))
     assert res.z.device.type == "cuda" and torch.isfinite(res.z).all()
     assert rb.riccati_backward_batched.launches > before
+
+
+def _packed(B, N, n, seed=0):
+    args = [torch.as_tensor(a, device="cuda") for a in random_sweep_inputs(B, N, 2 * n, n, seed)]
+    return args, dict(N=N, nx=2 * n, nw=n, ns=0, **ABC)
+
+
+def _general(B, N, nx, nw, per_lane=True, seed=0):
+    args = [torch.as_tensor(a, device="cuda")
+            for a in random_general_inputs(B, N, nx, nw, per_lane, seed)]
+    return args, dict(N=N, nx=nx, nw=nw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,N", RAGGED)
+def test_ragged_batches_match_plain_on_card(B, N):
+    """Both kernels, with 16- and 32-thread teams, at batches whose last
+    block is part-filled (its spare teams store nothing) and at N=1."""
+    _need_card()
+    for n in (3, 7):
+        args, kw = _packed(B, N, n)
+        k, K, f = rp.riccati_backward_packed(*args, **kw)
+        k_r, K_r, f_r = rp.riccati_backward_packed_reference(*args, **kw)
+        torch.testing.assert_close(k, k_r, rtol=2e-3, atol=2e-5)
+        torch.testing.assert_close(K, K_r, rtol=2e-3, atol=2e-5)
+        assert torch.equal(f, f_r) and not f.any()
+    for nx, nw in ((8, 2), (14, 7)):
+        args, kw = _general(B, N, nx, nw)
+        k, K, f = rb.riccati_backward_batched(*args, **kw)
+        k_r, K_r, f_r = rb.riccati_backward_batched_reference(*args, **kw)
+        torch.testing.assert_close(k, k_r, rtol=2e-3, atol=2e-4)
+        torch.testing.assert_close(K, K_r, rtol=2e-3, atol=2e-4)
+        assert torch.equal(f, f_r) and not f.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(3,), (7,), (8, 2)], ids=["packed_T16", "packed_T32", "general_T16"])
+def test_bad_lanes_mid_block_fail_alone_on_card(shape):
+    """A NaN lane (5) and a negative-definite lane (6) inside a block, beside
+    healthy lanes of the same block and warp: each fails alone, the second
+    with all-zero gains; the healthy lanes match the plain version."""
+    _need_card()
+    B, nan_lane, neg_lane = 11, 5, 6
+    if len(shape) == 1:
+        args, kw = _packed(B, 4, shape[0], seed=3)
+        sweep, plain, tol = rp.riccati_backward_packed, rp.riccati_backward_packed_reference, 2e-5
+    else:
+        args, kw = _general(B, 4, *shape, seed=3)
+        sweep, plain, tol = rb.riccati_backward_batched, rb.riccati_backward_batched_reference, 2e-4
+    nw = kw["nw"]
+    args[2][nan_lane, 1] = float("nan")
+    args[4][neg_lane] = -10.0 * torch.eye(nw, device="cuda")
+    k, K, f = sweep(*args, **kw)
+    assert f.tolist() == [i in (nan_lane, neg_lane) for i in range(B)]
+    assert torch.all(k[neg_lane] == 0) and torch.all(K[neg_lane] == 0)
+    good = [i for i in range(B) if i not in (nan_lane, neg_lane)]
+    k_r, K_r, _ = plain(*args, **kw)
+    torch.testing.assert_close(k[good], k_r[good], rtol=2e-3, atol=tol)
+    torch.testing.assert_close(K[good], K_r[good], rtol=2e-3, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["packed", "general_per_lane", "general_constant"])
+def test_lane_independence_on_card(kernel):
+    """Lane b swept alone equals lane b swept inside B=4096 bit for bit: a
+    team's arithmetic does not depend on its block, its warp or its
+    neighbours; shared-memory cross-talk between teams would break it."""
+    _need_card()
+    B = 4096
+    if kernel == "packed":
+        args, kw = _packed(B, 20, 7, seed=4)
+        sweep = rp.riccati_backward_packed
+    else:
+        args, kw = _general(B, 10, 8, 2, per_lane=kernel == "general_per_lane", seed=4)
+        sweep = rb.riccati_backward_batched
+    k, K, f = sweep(*args, **kw)
+    for b in (0, 1, 5, 1234, B - 1):
+        alone = [a[b:b + 1].contiguous() if a.shape[0] == B else a for a in args]
+        k1, K1, f1 = sweep(*alone, **kw)
+        assert torch.equal(k1[0], k[b]) and torch.equal(K1[0], K[b]) and f1[0] == f[b]
+
+
+@pytest.mark.gpu
+def test_general_kernel_long_constant_horizon_on_card():
+    """Batch-constant A/B whose horizon does not fit in a block's shared
+    memory (700 stages of (8, 2)) are staged by each team instead, with the
+    same result as the plain version."""
+    _need_card()
+    args, kw = _general(3, 700, 8, 2, per_lane=False, seed=6)
+    args[5] *= 0.8  # a stable A keeps 700 stages of random data finite
+    k, K, f = rb.riccati_backward_batched(*args, **kw)
+    k_r, K_r, f_r = rb.riccati_backward_batched_reference(*args, **kw)
+    torch.testing.assert_close(k, k_r, rtol=2e-3, atol=2e-4)
+    torch.testing.assert_close(K, K_r, rtol=2e-3, atol=2e-4)
+    assert torch.equal(f, f_r) and not f.any()

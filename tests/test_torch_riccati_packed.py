@@ -8,6 +8,8 @@ in another order and the Schur-form vs full-form value update). The CUDA
 kernel itself runs only on the card (``tests/test_torch_gpu.py``).
 """
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +18,8 @@ import torch
 
 from robot_mpcs_tpu.ops.riccati_packed import detect_structure as jax_detect
 from robot_mpcs_tpu.ops.riccati_packed import riccati_backward_packed as jax_packed
+from robot_mpcs_tpu_torch.config import Setup, boxer_setup, panda_setup, point_robot_setup
+from robot_mpcs_tpu_torch.models.problem import MpcProblem
 from robot_mpcs_tpu_torch.ops import _build
 from robot_mpcs_tpu_torch.ops import riccati_batched as rb
 from robot_mpcs_tpu_torch.ops import riccati_packed as rp
@@ -101,6 +105,56 @@ def test_non_cpu_non_cuda_tensor_raises():
     data = [torch.as_tensor(a, device="meta") for a in _random_data(2, 3, 6, 3)]
     with pytest.raises(ValueError, match="no kernel for device"):
         rp.riccati_backward_packed(*data, N=3, nx=6, nw=3, ns=0, a=0.1, b1=0.005, b2=0.1)
+
+
+_CASE = re.compile(r"^\s*RICCATI_CASE\(([\d,\s]+)\)", re.M)
+
+
+def _instantiations(source):
+    """The integer tuples of the RICCATI_CASE lines of ``csrc/<source>``."""
+    text = (_build.CSRC / source).read_text()
+    return [tuple(int(v) for v in case.split(",")) for case in _CASE.findall(text)]
+
+
+@pytest.mark.parametrize("slack", [False, True], ids=["no_slack", "slack"])
+@pytest.mark.parametrize("robot", ["pointRobot", "panda", "boxer"])
+def test_every_solver_shape_is_instantiated(robot, slack):
+    """Each shape the solver hands a CUDA kernel, for every robot with and
+    without the slack column, has a RICCATI_CASE line, and that line's team
+    size T passes the kernel's static_asserts: a team within one warp, with
+    more threads than the 1 + nx solve columns (structured kernel: the rest
+    assemble Qww) or at least as many (general kernel)."""
+    setups = {"pointRobot": point_robot_setup, "panda": panda_setup, "boxer": boxer_setup}
+    d = setups[robot]()
+    d["mpc"]["slack"] = slack
+    problem = MpcProblem(Setup.from_dict(d))
+    dims = problem.dims
+    nx, ns, nw = dims.nx, dims.ns, dims.ns + dims.nu
+    stage = problem.solver_callbacks()[0]
+    structured = None
+    if isinstance(stage.dyn_jac, tuple):  # as build_solver selects the kernel
+        A = np.asarray(stage.dyn_jac[0])
+        B = np.concatenate([np.zeros((nx, ns)), np.asarray(stage.dyn_jac[1])], 1)
+        structured = rp.detect_structure(A, B, nx=nx, ns=ns)
+    assert (structured is not None) == (robot != "boxer")
+    if structured is not None:
+        teams = {c[:3]: c[3] for c in _instantiations("riccati_packed.cu")}
+        T = teams.get((nx, nw, ns))
+        assert T is not None and 32 % T == 0 and 1 + nx < T, ((nx, nw, ns), teams)
+    else:
+        teams = {c[:2]: c[2] for c in _instantiations("riccati_batched.cu")}
+        T = teams.get((nx, nw))
+        assert T is not None and 32 % T == 0 and 1 + nx <= T, ((nx, nw), teams)
+
+
+def test_build_key_covers_included_headers():
+    """Both kernel sources include the shared header, so an edit to it
+    changes the library's hash (no stale library is loaded)."""
+    header = _build.CSRC / "riccati_common.cuh"
+    for stem in ("riccati_packed", "riccati_batched"):
+        assert _build.source_files(_build.CSRC / f"{stem}.cu") == [
+            _build.CSRC / f"{stem}.cu", header
+        ]
 
 
 @pytest.mark.parametrize("module", [rp, rb], ids=["packed", "batched"])
