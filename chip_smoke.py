@@ -17,7 +17,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
    * at every shape the main paths launch them at (``PACKED_SHAPES``:
      panda's and pointRobot's phase 1 and rescue tier, alone and in the
-     group; ``GENERAL_SHAPES``: boxer's phase 1 and rescue tier, boxer at
+     group, and their planners' B=1; ``GENERAL_SHAPES``: boxer's phase 1,
+     planner (B=1) and rescue tier, boxer at
      B=4096 with per-lane and batch-constant A/B, (14, 7, 20) at B=4096),
      each also timed and printed as a ``kernel_shape`` line;
    * the structured sweep at the test dims (3, 0, 6), (3, 1, 5) and panda
@@ -53,13 +54,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
    synchronized wall time per step, one profiled group step, and one
    profiled call of the solver's diff-drive Jacobians (forward-mode
    autodiff, ``dynamics_jacobians``).
-6. reference: 64 lanes solved on the card and on the CPU (plain Riccati
+6. planner path: the single-robot receding-horizon planner (``MPCPlanner``
+   with ``KinematicSim``, ``FreeSpaceDecomposition``, ``GlobalPlanner``) on
+   the card, each run read with its own launch counts (set to 0 before it):
+   panda reaching a workspace goal (<= 150 solves, goal within 0.05 m),
+   pointRobot around a sphere (<= 250 solves, goal within 0.15 m, clearance
+   > -0.05 m) and boxer through lidar free-space half-planes (40 solves);
+   every exit flag >= 0, every launch at B=1. Prints per-solve wall ms (p50 /
+   p90 / max of solves 2..., the first apart), launches per solve
+   (``planner_launches``) and one profiled solve each. The first 10 solves
+   of each run are repeated by a ``device="cpu"`` planner
+   from the same observations, half-planes and warm starts: flags equal,
+   actions within 1e-3 (2 x tol_stationarity where the two solves took a
+   different number of inner iterations, see ``PLANNER_ATOL``), converged
+   true costs within 1e-5 relative. ``solve_batch`` of 64 perturbed panda
+   observations equals 64 B=1 solves (flags, z under the same bars). The
+   global planner's obstacle enlargement on the card equals the CPU's on a
+   seeded 128 x 128 map, and A* finds a path on it.
+7. reference: 64 lanes solved on the card and on the CPU (plain Riccati
    versions), for panda and for boxer: exit flags agree on >= 60 of 64,
    true costs of lanes both converge within 1e-4 relative, converged
    violation <= 1e-4.
 
-Output: the kernels JSON line, then the card's ``name, power.limit`` line,
-then the result line ``{"ok": true, "device": {...}}`` last.
+Output: the kernels JSON line (each kernel's ``launches`` from the panda
+fleet and the group), then the card's ``name, power.limit`` line, then the
+result line ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
@@ -97,20 +116,24 @@ GROUP_SAMPLERS = {
 }
 GROUP_SIZES = {"pointRobot": 1024, "panda": 2048, "boxer": 1024}
 #: the shapes the main paths launch the structured kernel at, (B, N, n, ns):
-#: each fleet's phase 1 at full width and its rescue tier at 1/8 width
+#: each fleet's phase 1 at full width and its rescue tier at 1/8 width, and
+#: the single-robot planner's B=1
 PACKED_SHAPES = {
     "panda phase 1": (BATCH, 20, 7, 0),
+    "panda planner": (1, 20, 7, 0),
+    "pointRobot planner": (1, 20, 3, 0),
     "panda rescue": (BATCH // 8, 20, 7, 0),
     "group panda phase 1": (GROUP_SIZES["panda"], 20, 7, 0),
     "group panda rescue": (GROUP_SIZES["panda"] // 8, 20, 7, 0),
     "group pointRobot phase 1": (GROUP_SIZES["pointRobot"], 20, 3, 0),
     "group pointRobot rescue": (GROUP_SIZES["pointRobot"] // 8, 20, 3, 0),
 }
-#: ... and the general kernel, (B, N, nx, nw, per-lane A/B): boxer's phase 1
-#: and rescue tier, then boxer at B=4096 with per-lane and batch-constant
+#: ... and the general kernel, (B, N, nx, nw, per-lane A/B): boxer's phase 1,
+#: its planner (B=1) and rescue tier, then boxer at B=4096 with per-lane and batch-constant
 #: A/B, and (14, 7) with per-lane A/B (no robot model runs it)
 GENERAL_SHAPES = {
     "group boxer phase 1": (GROUP_SIZES["boxer"], 10, 8, 2, True),
+    "boxer planner": (1, 10, 8, 2, True),
     "group boxer rescue": (GROUP_SIZES["boxer"] // 8, 10, 8, 2, True),
     "boxer B=4096": (BATCH, 10, 8, 2, True),
     "boxer B=4096 batch-constant": (BATCH, 10, 8, 2, False),
@@ -628,6 +651,377 @@ def group_phase(torch, rp, rb):
     return problems["boxer"][0], scenarios["boxer"], packed_launches, batched_launches
 
 
+#: closed-loop solve caps of the planner runs, and the number of their first
+#: observations replayed on a CPU planner
+PLANNER_CAPS = {"panda": 150, "pointRobot": 250, "boxer": 40}
+PLANNER_REPLAY = 10
+SOLVE_BATCH = 64
+#: goal radius (m) of each planner run: panda's end effector
+#: (tests/test_planner_behavior.py), pointRobot's base (the verify recipe),
+#: boxer's end effector (examples/boxer_example.py)
+PLANNER_GOAL_TOL = {"panda": 0.05, "pointRobot": 0.15, "boxer": 0.4}
+#: card-vs-CPU control bar (tests/test_parity.py) and solve_batch lane bar,
+#: for two solves that took the same number of inner iterations. A solve
+#: stops once its Newton step falls below tol_stationarity (1e-3, control
+#: units) and the f32 merit test finds no gain; where one side takes one
+#: more such step than the other, the two differ by that step, so solves
+#: whose iteration counts differ are held to 2 x tol_stationarity instead.
+PLANNER_ATOL = 1e-3
+#: true-cost bar of converged card-vs-CPU solves (tests/test_torch_fleet.py)
+PLANNER_COST_RTOL = 1e-5
+
+
+class Sphere:
+    """A sphere obstacle in the planner's ``position()``/``radius()`` API."""
+
+    def __init__(self, position, radius):
+        self._position, self._radius = list(position), float(radius)
+
+    def position(self):
+        return self._position
+
+    def radius(self):
+        return self._radius
+
+    def dimension(self):
+        return 3
+
+
+def simulate_lidar(pose, obstacles, n_rays=64, max_range=10.0):
+    """Raycast circles from the lidar mount (0.4 m ahead of the base), as
+    examples/boxer_example.py:24-51. Returns (n_hits, 3) world points."""
+    x, y, theta = pose
+    origin = np.array([x + 0.4 * np.cos(theta), y + 0.4 * np.sin(theta)])
+    angles = theta + np.linspace(0, 2 * np.pi, n_rays, endpoint=False)
+    dirs = np.stack([np.cos(angles), np.sin(angles)], axis=1)
+    points = []
+    for d in dirs:
+        best = max_range
+        for obst in obstacles:
+            c = np.asarray(obst.position()[:2]) - origin
+            proj = float(c @ d)
+            if proj <= 0:
+                continue
+            perp2 = float(c @ c) - proj * proj
+            r2 = obst.radius() ** 2
+            if perp2 > r2:
+                continue
+            t = proj - np.sqrt(r2 - perp2)
+            if 0 < t < best:
+                best = t
+        if best < max_range:
+            hit = origin + best * d
+            points.append([hit[0], hit[1], 0.0])
+    return np.array(points, np.float32).reshape(-1, 3)
+
+
+def planner_scenario(kind, device):
+    """The planner, sim, initial state, goal and obstacles of one scenario,
+    through the port's entry points on ``device``:
+
+    * panda: tests/test_planner_behavior.py::test_panda_reaches_goal
+      (pandaMpc.yaml with wconstr = [0.05, 0, 0, 0], one sphere, self
+      collision, the URDF's joint limits, inputs +-5);
+    * pointRobot: the verify recipe (pointRobotMpc.yaml with wconstr =
+      [0.005, 0, 0, 0], a sphere on the line to the goal);
+    * boxer: examples/boxer_example.py (boxerMpc.yaml, two spheres seen only
+      through the lidar's free-space half-planes, r_body 0.6).
+    """
+    from robot_mpcs_tpu_torch.config import Setup, boxer_setup, panda_setup, point_robot_setup
+    from robot_mpcs_tpu_torch.models.problem import MpcProblem
+    from robot_mpcs_tpu_torch.perception import FreeSpaceDecomposition
+    from robot_mpcs_tpu_torch.planner import MPCPlanner
+    from robot_mpcs_tpu_torch.sim import KinematicSim
+
+    setup = Setup.from_dict({"panda": panda_setup, "pointRobot": point_robot_setup,
+                             "boxer": boxer_setup}[kind]())
+    problem = MpcProblem(setup)
+    planner = MPCPlanner(problem, device=device)
+    dims = problem.dims
+    x0 = np.zeros(dims.nx, np.float32)
+    sc = {"kind": kind, "problem": problem, "planner": planner,
+          "sim": KinematicSim(dims, setup.mpc.time_step, device=device), "x0": x0}
+    if kind == "panda":
+        sc.update(goal=[0.4, 0.3, 0.6], obstacles=[Sphere([0.2, -0.4, 0.8], 0.15)], r_body=0.1)
+        x0[: dims.n] = [0.0, -0.8, 0.0, -2.0, 0.0, 1.5, 0.0]
+        lim = problem.kin.joint_limits
+        limits, limits_u, r_self = (lim[:, 0], lim[:, 1]), ([-5.0] * 7, [5.0] * 7), 0.05
+    elif kind == "pointRobot":
+        sc.update(goal=[3.0, 0.5, 0.0], obstacles=[Sphere([1.5, 0.25, 0.05], 0.4)], r_body=0.2)
+        limits, limits_u, r_self = ([-10.0] * 3, [10.0] * 3), ([-5.0] * 3, [5.0] * 3), 0.2
+    else:
+        sc.update(goal=[7.2, -2.2], obstacles=[Sphere([4.0, -1.5, 0.0], 1.0), Sphere([2.4, -0.7, 0.0], 0.3)],
+                  r_body=0.6, fsd=FreeSpaceDecomposition(dims.n_obst, max_radius=5.0, device=device))
+        limits, limits_u, r_self = ([-10.0] * 3, [10.0] * 3), ([-10.0] * 2, [10.0] * 2), 0.6
+    planner.setGoalReaching(sc["goal"])
+    planner.setConstraintAvoidance()
+    if kind != "boxer":
+        planner.setRadialConstraints(sc["obstacles"], sc["r_body"])
+    planner.setSelfCollisionAvoidanceConstraints(r_self)
+    planner.setJointLimits(limits)
+    planner.setInputLimits(limits_u)
+    planner.concretize()
+    return sc
+
+
+def boxer_halfplanes(sc, q, exitflag, output):
+    """Per-stage half-planes from one lidar scan (examples/boxer_example.py
+    :70-89): one decomposition around each stage of the previous plan when
+    the last solve succeeded, else around the current pose."""
+    planner, fsd = sc["planner"], sc["fsd"]
+    cloud = simulate_lidar(q, sc["obstacles"])
+    lin = []
+    for j in range(planner._N):
+        if exitflag >= 0 and output:
+            stage = output[planner._stage_key(j + 1)]
+            fsd.set_position(np.array([stage[0], stage[1], 0.0]))
+        else:
+            fsd.set_position(np.array([q[0], q[1], 0.0]))
+        if cloud.size:
+            fsd.compute_constraints(cloud)
+            lin.append(fsd.aslist())
+        else:
+            lin.append(np.tile(np.array([1.0, 0.0, 0.0, -100.0]), (planner._dims.n_obst, 1)))
+    return lin
+
+
+def goal_distance(sc, state):
+    """Distance (m) of the scenario's tracked point from its goal."""
+    import torch
+
+    if sc["kind"] == "panda":
+        q = torch.from_numpy(np.asarray(state[: sc["problem"].dims.n], np.float32))
+        ee = sc["problem"].kin.fk_pos(q).numpy()
+        return float(np.linalg.norm(ee - np.asarray(sc["goal"])))
+    if sc["kind"] == "pointRobot":
+        return float(np.linalg.norm(state[:2] - np.asarray(sc["goal"][:2])))
+    ee = state[:2] + 0.4 * np.array([np.cos(state[2]), np.sin(state[2])])
+    return float(np.linalg.norm(ee - np.asarray(sc["goal"])))
+
+
+def planner_run(kind, device, cap, replay=PLANNER_REPLAY):
+    """One closed loop of the scenario ``kind`` on ``device`` for at most
+    ``cap`` solves, stopping at the goal (panda, pointRobot). Every exit flag
+    must be >= 0. Returns the scenario and a record: per-solve wall ms (the
+    whole ``computeAction``, its host copies included), FSD ms per step
+    (boxer), the steps to the goal, the final distance, the pointRobot's
+    least clearance, and the first ``replay`` solves: observation,
+    half-planes, the planner's warm start before the solve, and the solve's
+    action, flag, inner iterations and true cost."""
+    sc = planner_scenario(kind, device)
+    planner, sim = sc["planner"], sc["sim"]
+    state = sim.reset(sc["x0"])
+    rec = {"solve_ms": [], "fsd_ms": [], "flags": [], "replay": [], "reached_at": None,
+           "min_clearance": None}
+    exitflag, output = -1, {}
+    for step in range(cap):
+        obs = tuple(np.array(o) for o in sim.observation())
+        lin = None
+        if kind == "boxer":
+            t = time.perf_counter()
+            lin = boxer_halfplanes(sc, obs[0], exitflag, output)
+            rec["fsd_ms"].append((time.perf_counter() - t) * 1e3)
+            planner.setLinearConstraints(lin, sc["r_body"])
+        if step < replay:  # the warm start this solve starts from
+            warm = (planner._lam.copy(), np.array(getattr(planner, "_z_prev", planner._x0)),
+                    planner._initial_step)
+        t = time.perf_counter()
+        action, output, exitflag = planner.computeAction(*obs)
+        rec["solve_ms"].append((time.perf_counter() - t) * 1e3)
+        rec["flags"].append(exitflag)
+        check(exitflag >= 0, f"{kind} planner on {device}: exitflag {exitflag} at step {step}")
+        check(bool(np.all(np.isfinite(action))), f"{kind} planner: non-finite action at step {step}")
+        if step < replay:
+            info = planner._last_info
+            rec["replay"].append((obs, lin, warm, np.array(action), exitflag, int(info.iterations),
+                                  float(info.cost)))
+        state = sim.step(action)
+        if kind == "pointRobot":
+            obst = sc["obstacles"][0]
+            clear = (np.linalg.norm(np.array([state[0], state[1], 0.05]) - np.asarray(obst.position()))
+                     - obst.radius() - sc["r_body"])
+            rec["min_clearance"] = clear if rec["min_clearance"] is None else min(rec["min_clearance"], clear)
+        if goal_distance(sc, state) < PLANNER_GOAL_TOL[kind] and kind != "boxer":
+            rec["reached_at"] = step
+            break
+    rec["final_distance"] = goal_distance(sc, state)
+    return sc, rec
+
+
+def solve_bar(problem, iterations_a, iterations_b):
+    """Control bar between two solves of the same inputs (``PLANNER_ATOL``)."""
+    if iterations_a == iterations_b:
+        return PLANNER_ATOL
+    return 2.0 * problem.setup.solver.tol_stationarity
+
+
+def replay_on(kind, device, rec):
+    """The recorded solves of a run repeated by a fresh planner on
+    ``device``: the same observations and half-planes, each from the
+    recorded planner's warm start (the closed loop's history is the card's,
+    so each solve is compared from the same inputs). Returns one record per
+    solve: |action difference|, its bar, both flags, both iteration counts,
+    the relative true-cost difference, and the solve's wall ms."""
+    sc = planner_scenario(kind, device)
+    planner = sc["planner"]
+    out = []
+    for obs, lin, (lam, z_prev, initial), action, flag, iters, cost in rec["replay"]:
+        if lin is not None:
+            planner.setLinearConstraints(lin, sc["r_body"])
+        planner._lam, planner._z_prev, planner._initial_step = lam.copy(), z_prev.copy(), initial
+        t = time.perf_counter()
+        a, _, f = planner.computeAction(*obs)
+        ms = (time.perf_counter() - t) * 1e3
+        info = planner._last_info
+        out.append({"diff": float(np.abs(a - action).max()),
+                    "bar": solve_bar(sc["problem"], iters, int(info.iterations)),
+                    "flags": (flag, f), "iterations": (iters, int(info.iterations)),
+                    "cost_rel": abs(float(info.cost) - cost) / max(abs(cost), 1e-6), "ms": ms})
+    return out
+
+
+def percentiles(ms):
+    """p50 / p90 / max of solves 2... and the first solve, in ms."""
+    rest = ms[1:] or ms
+    return {"first_ms": ms[0], "p50_ms": float(np.percentile(rest, 50)),
+            "p90_ms": float(np.percentile(rest, 90)), "max_ms": float(max(rest)), "solves": len(ms)}
+
+
+def planner_phase(torch, rp, rb):
+    """Drive the port's single-robot planner on the card (panda, pointRobot,
+    boxer with lidar and free-space half-planes), replay their first
+    observations on a CPU planner, check ``solve_batch`` against single
+    solves and the global planner against the CPU."""
+    counters = {"riccati_backward_packed": rp.riccati_backward_packed,
+                "riccati_backward_batched": rb.riccati_backward_batched}
+    needs = {"panda": "riccati_backward_packed", "pointRobot": "riccati_backward_packed",
+             "boxer": "riccati_backward_batched"}
+    per_solve, runs = {}, {}
+    for kind, cap in PLANNER_CAPS.items():
+        for fn in counters.values():
+            fn.launches = 0
+        with launches_by_batch(1) as tally:
+            sc, rec = planner_run(kind, "cuda", cap)
+        launches = {name: fn.launches for name, fn in counters.items()}
+        solves = len(rec["solve_ms"])
+        check(launches[needs[kind]] > 0, f"{kind} planner never launched {needs[kind]}")
+        check(all(B == 1 for _, B in tally), f"{kind} planner launched at B != 1: {dict(tally)}")
+        per_solve[kind] = {name: n / solves for name, n in launches.items() if n}
+        if kind != "boxer":
+            check(rec["reached_at"] is not None,
+                  f"{kind} planner did not reach its goal in {cap} solves: {rec['final_distance']:.3f} m")
+        if kind == "pointRobot":
+            check(rec["min_clearance"] > -0.05, f"pointRobot clearance {rec['min_clearance']:.3f} m")
+        # one profiled solve from the final state
+        planner = sc["planner"]
+        obs = np.concatenate([np.asarray(o) for o in sc["sim"].observation()])
+        _, prof = profile_windows(torch, {"solve": lambda: planner.solve(obs)},
+                                  ["riccati_packed_kernel", "riccati_batched_kernel"])
+        runs[kind] = (sc, rec)
+        print(json.dumps({
+            "planner": kind, "device": "cuda", "steps_to_goal": rec["reached_at"],
+            "final_distance_m": rec["final_distance"], "min_clearance_m": rec["min_clearance"],
+            **percentiles(rec["solve_ms"]),
+            "fsd_ms_per_step": float(np.median(rec["fsd_ms"])) if rec["fsd_ms"] else None,
+            "launches_per_solve": per_solve[kind], "flags": collections.Counter(rec["flags"]),
+            "profiled_solve": prof,
+        }), flush=True)
+    print(json.dumps({"planner_launches": per_solve}), flush=True)
+
+    # the first solves of each run, repeated on the CPU
+    for kind in PLANNER_CAPS:
+        rec = runs[kind][1]
+        rows = replay_on(kind, "cpu", rec)
+        same_it = [r for r in rows if r["iterations"][0] == r["iterations"][1]]
+        conv = [r for r in rows if r["flags"] == (1, 1)]
+        print(json.dumps({
+            "planner_card_vs_cpu": kind, "solves": len(rows),
+            "max_action_diff": max(r["diff"] for r in rows),
+            "max_action_diff_same_iterations": max((r["diff"] for r in same_it), default=None),
+            "solves_with_other_iteration_count": len(rows) - len(same_it),
+            "flags_equal": all(a == b for a, b in (r["flags"] for r in rows)),
+            "max_cost_rel_converged": max((r["cost_rel"] for r in conv), default=None),
+            "card_ms": percentiles(rec["solve_ms"][: len(rows)]), "cpu_ms": percentiles([r["ms"] for r in rows]),
+            "per_solve": [{k: r[k] for k in ("diff", "flags", "iterations", "cost_rel")} for r in rows],
+        }), flush=True)
+        for i, r in enumerate(rows):
+            check(r["flags"][0] == r["flags"][1], f"{kind} planner solve {i}: exit flags {r['flags']} (card, CPU)")
+            check(r["diff"] <= r["bar"], f"{kind} planner solve {i}: card and CPU actions differ by "
+                  f"{r['diff']:.3e} > {r['bar']:.0e} (iterations {r['iterations']})")
+            if r["flags"] == (1, 1):
+                check(r["cost_rel"] <= PLANNER_COST_RTOL,
+                      f"{kind} planner solve {i}: true costs differ by {r['cost_rel']:.2e} relative")
+
+    solve_batch_phase(runs["panda"])
+    global_planner_phase()
+
+
+def solve_batch_phase(run):
+    """``solve_batch`` of SOLVE_BATCH perturbed panda observations at once
+    against a B=1 solve of each: exit flags equal, z within ``solve_bar``."""
+    sc, rec = run
+    planner, dims = sc["planner"], sc["problem"].dims
+    rng = np.random.default_rng(0)
+    base = np.concatenate(rec["replay"][-1][0])
+    B = SOLVE_BATCH
+    xinit = np.repeat(base[None], B, 0).astype(np.float32)
+    xinit[:, : dims.n] += rng.normal(0.0, 0.02, size=(B, dims.n)).astype(np.float32)
+    params = np.repeat(planner.params[None], B, 0)
+    z0 = np.zeros((B, dims.N, dims.nz), np.float32)
+    z0[:, :, : dims.nx] = xinit[:, None]
+    lam0 = np.repeat(planner._lam[None], B, 0)
+    t = time.perf_counter()
+    batch = planner.solve_batch(xinit, params, z0, lam0)
+    flags, z = batch.exitflag.cpu().numpy(), batch.z.cpu().numpy()
+    batch_ms = (time.perf_counter() - t) * 1e3
+    iters = batch.iterations.cpu().numpy()
+    err, same_err, differ, over = 0.0, 0.0, [], []
+    for i in range(B):
+        one = planner.solve_batch(xinit[i : i + 1], params[i : i + 1], z0[i : i + 1], lam0[i : i + 1])
+        if int(one.exitflag[0]) != int(flags[i]):
+            differ.append(i)
+        d = float(np.abs(one.z[0].cpu().numpy() - z[i]).max())
+        err = max(err, d)
+        if int(one.iterations[0]) == int(iters[i]):
+            same_err = max(same_err, d)
+        if d > solve_bar(sc["problem"], int(one.iterations[0]), int(iters[i])):
+            over.append(i)
+    print(json.dumps({"solve_batch": B, "batch_ms": batch_ms, "flags": collections.Counter(flags.tolist()),
+                      "lanes_with_other_flag": differ, "max_z_diff": err,
+                      "max_z_diff_same_iterations": same_err, "lanes_over_bar": over}), flush=True)
+    check(not differ, f"solve_batch: lanes {differ} end with another exit flag than their B=1 solve")
+    check(not over, f"solve_batch: lanes {over} differ from their B=1 solves beyond the bar (max {err:.3e})")
+
+
+def global_planner_phase():
+    """``GlobalPlanner`` on a seeded random 128x128 occupancy map with a wall:
+    the obstacle enlargement on the card equals the CPU's exactly (0/1 map:
+    a blurred cell is a count, no rounding reaches the threshold), and A*
+    (native library when built, else the Python fallback) finds a path."""
+    from robot_mpcs_tpu_torch.global_planner import GlobalPlanner
+    from robot_mpcs_tpu_torch.global_planner import astar
+    from robot_mpcs_tpu_torch.global_planner.global_planner import enlarge_obstacles
+
+    gp = GlobalPlanner([128, 128, 1], [-6.4, -6.4, 0.0], [6.4, 6.4, 1.0], device="cuda")
+    occ = (np.random.default_rng(0).random((128, 128, 1)) < 0.1).astype(np.float32)
+    occ[30:100, 62:66, 0] = 1.0
+    gp.get_occupancy_map(None, occ)
+    t = time.perf_counter()
+    card = gp.get_enlarged_obstacles()
+    card_ms = (time.perf_counter() - t) * 1e3
+    k = int(np.ceil(0.4 / gp.cell_size))
+    cpu = enlarge_obstacles(gp.occupancy_map_2d / max(gp.occupancy_map_2d.max(), 1e-6), k, gp.threshold,
+                            device="cpu")
+    check(np.array_equal(card, cpu), f"enlarge_obstacles: card and CPU differ in {int((card != cpu).sum())} cells")
+    t = time.perf_counter()
+    path, _ = gp.get_global_path_astar(np.array([-5.0, -5.0, 0.0]), np.array([5.0, 5.0, 0.0]))
+    astar_ms = (time.perf_counter() - t) * 1e3
+    check(len(path) > 0, "global planner found no path")
+    print(json.dumps({"global_planner": "128x128", "enlarge_ms_card": card_ms, "occupied_after_enlarge":
+                      int(card.sum()), "path_nodes": len(path), "astar_ms": astar_ms,
+                      "astar": "native" if astar._NATIVE is not None else "python fallback"}), flush=True)
+
+
 def reference_phase(torch, label, problem, scenario):
     """One batched solve of 64 lanes on the card vs the same solve on the CPU."""
     B = 64
@@ -686,6 +1080,8 @@ def main() -> int:
     print(f"panda path done at {time.perf_counter() - t0:.1f} s", flush=True)
     boxer, boxer_scenario, _, batched["launches"] = group_phase(torch, rp, rb)
     print(f"group path done at {time.perf_counter() - t0:.1f} s", flush=True)
+    planner_phase(torch, rp, rb)
+    print(f"planner path done at {time.perf_counter() - t0:.1f} s", flush=True)
     reference_phase(torch, "panda", panda, panda_scenario)
     reference_phase(torch, "boxer", boxer, boxer_scenario)
     print(f"all phases done at {time.perf_counter() - t0:.1f} s", flush=True)

@@ -20,6 +20,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Dict, List, Tuple
 
+import numpy as np
 import torch
 
 
@@ -48,6 +49,15 @@ class ParamMap:
         start, n = self.entries[name]
         return p[..., start : start + n]
 
+    def set_np(self, params: np.ndarray, name: str, value, stage=None) -> None:
+        """Write into a host-side ``[N, npar]`` buffer (all stages, or one)."""
+        start, n = self.entries[name]
+        v = np.broadcast_to(np.asarray(value, dtype=params.dtype), (n,))
+        if stage is None:
+            params[:, start : start + n] = v
+        else:
+            params[stage, start : start + n] = v
+
     def to_reference_dict(self) -> Dict[str, List[int]]:
         """The exact structure serialized as paramMap.yaml by the reference
         (name -> flat index list, ``mpcModel.py:132-133``)."""
@@ -55,3 +65,10 @@ class ParamMap:
             name: list(range(start, start + n))
             for name, (start, n) in self.entries.items()
         }
+
+
+#: Sentinel "no obstacle" padding values (reference ``EmptyObstacle``,
+#: ``mpcPlanner.py:18-26``): position -100, radius -100 makes the distance
+#: constraint inactive while keeping fixed array shapes.
+EMPTY_OBSTACLE_POSITION = -100.0
+EMPTY_OBSTACLE_RADIUS = -100.0

@@ -11,16 +11,18 @@ Mirrors the role of reference ``robotmpcs/models/mpcModel.py`` (and
 * the variable bounds (default box +-100 as in ``mpcModel.py:23-27``).
 
 Every stage function is batch-first: ``z (..., nz)`` and ``p (..., npar)``
-with the same leading dimensions. Not ported yet: the solver-artifact
-directory (``generate_solver`` / ``from_solver_dir``, with ``properties``
-and ``solver_name``), ``set_limits``, and the canonical per-component
-``stage_objective`` / ``stage_inequalities`` the JAX planner evaluates.
+with the same leading dimensions. The solver-artifact directory
+(``generate_solver`` / ``from_solver_dir``) holds the same three YAML files
+as the JAX package's; the compiled code lives in the kernel build cache
+(``build/robot_mpcs_tpu_torch/``), not in the directory. Not ported: the
+canonical per-component ``stage_objective`` / ``stage_inequalities`` (the
+port's solver runs only the split-row form).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -121,9 +123,38 @@ class MpcProblem:
                 pass
         raise FileNotFoundError(f"URDF {urdf_file!r} not found and not a builtin robot")
 
+    # ------------------------------------------------------------------ API
+
+    def set_limits(self, limits: Dict[str, Dict[str, np.ndarray]]) -> None:
+        """Override variable bounds (reference ``setLimits``, mpcModel.py:62-63)."""
+        self.limits.update(limits)
+
     @property
     def npar(self) -> int:
         return self.param_map.npar
+
+    @property
+    def solver_name(self) -> str:
+        """Solver directory name, minted exactly like ``mpcModel.py:111-116``
+        so reference-named artifacts interoperate."""
+        name = (
+            f"{self.mpc.model_name}_n{self.dims.n}_"
+            f"{str(self.dt).replace('.', '')}_H{self.dims.N}"
+        )
+        if not self.mpc.slack:
+            name += "_noSlack"
+        return name
+
+    def properties(self) -> Dict:
+        """The properties.yaml payload (reference ``mpcModel.py:134``)."""
+        return {
+            "nx": self.dims.nx,
+            "nu": self.dims.nu,
+            "npar": self.npar,
+            "ns": self.dims.ns,
+            "m": self.dims.m,
+            "constraints": list(self.mpc.constraints),
+        }
 
     # ----------------------------------------------------- solver wiring
 
@@ -330,3 +361,43 @@ class MpcProblem:
             S_aff=split["S_aff"],
             device=device,
         )
+
+    # ----------------------------------------------------- artifact I/O
+
+    def generate_solver(self, location: str = "./") -> str:
+        """Persist the solver artifact directory (reference
+        ``generateSolver``, mpcModel.py:128-141): paramMap.yaml,
+        properties.yaml and the full setup. Returns the artifact path.
+
+        The directory holds no compiled program: the solver is PyTorch code
+        plus the two Riccati kernels, which ``ops/_build.py`` compiles at
+        first use into the kernel build cache (``build/robot_mpcs_tpu_torch/``,
+        keyed by a hash of the sources, the nvcc flags and version).
+        """
+        import yaml
+
+        path = os.path.join(location, self.solver_name)
+        os.makedirs(path, exist_ok=True)
+        with open(os.path.join(path, "paramMap.yaml"), "w") as f:
+            yaml.dump(self.param_map.to_reference_dict(), f, default_flow_style=False)
+        with open(os.path.join(path, "properties.yaml"), "w") as f:
+            yaml.dump(self.properties(), f, default_flow_style=False)
+        with open(os.path.join(path, "setup.yaml"), "w") as f:
+            yaml.dump(self.setup.to_dict(), f, default_flow_style=False)
+        return path
+
+    @classmethod
+    def from_solver_dir(cls, path: str) -> "MpcProblem":
+        """Rebuild a problem from a persisted artifact directory, refusing one
+        whose paramMap differs from the rebuilt problem's (the parameter
+        ABI)."""
+        import yaml
+
+        with open(os.path.join(path, "setup.yaml")) as f:
+            setup = Setup.from_dict(yaml.safe_load(f))
+        problem = cls(setup)
+        with open(os.path.join(path, "paramMap.yaml")) as f:
+            persisted = yaml.safe_load(f)
+        if persisted != problem.param_map.to_reference_dict():
+            raise ValueError(f"paramMap mismatch loading artifact {path}")
+        return problem

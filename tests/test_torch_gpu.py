@@ -14,6 +14,7 @@ sweep at those of ``tests/test_riccati_pallas.py:70-75`` (rtol 2e-3, atol
 import pytest
 import torch
 
+import chip_smoke
 from chip_smoke import random_general_inputs, random_sweep_inputs
 from robot_mpcs_tpu_torch.ops import riccati_batched as rb
 from robot_mpcs_tpu_torch.ops import riccati_packed as rp
@@ -258,3 +259,77 @@ def test_general_kernel_long_constant_horizon_on_card():
     torch.testing.assert_close(k, k_r, rtol=2e-3, atol=2e-4)
     torch.testing.assert_close(K, K_r, rtol=2e-3, atol=2e-4)
     assert torch.equal(f, f_r) and not f.any()
+
+
+#: the single-robot planner's kernel shapes (B=1), from chip_smoke.py
+PLANNER_PACKED = {k: v for k, v in chip_smoke.PACKED_SHAPES.items() if "planner" in k}
+PLANNER_GENERAL = {k: v for k, v in chip_smoke.GENERAL_SHAPES.items() if "planner" in k}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label", sorted(PLANNER_PACKED) + sorted(PLANNER_GENERAL))
+def test_planner_shapes_match_plain_on_card(label):
+    """Both kernels at the planner's B=1 (one team in a block of 4 or 8
+    lanes, the rest dead) against their plain versions."""
+    _need_card()
+    if label in PLANNER_PACKED:
+        B, N, n, _ = PLANNER_PACKED[label]
+        args, kw = _packed(B, N, n, seed=1)
+        sweep, plain, tol = rp.riccati_backward_packed, rp.riccati_backward_packed_reference, 2e-5
+    else:
+        B, N, nx, nw, per_lane = PLANNER_GENERAL[label]
+        args, kw = _general(B, N, nx, nw, per_lane, seed=1)
+        sweep, plain, tol = rb.riccati_backward_batched, rb.riccati_backward_batched_reference, 2e-4
+    assert B == 1
+    before = sweep.launches
+    k, K, f = sweep(*args, **kw)
+    assert sweep.launches == before + 1
+    k_r, K_r, f_r = plain(*args, **kw)
+    torch.testing.assert_close(k, k_r, rtol=2e-3, atol=tol)
+    torch.testing.assert_close(K, K_r, rtol=2e-3, atol=tol)
+    assert torch.equal(f, f_r) and not f.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,cap", [("panda", 100), ("pointRobot", 100), ("boxer", 10)])
+def test_planner_scenarios_on_card(kind, cap):
+    """chip_smoke.py's planner runs at reduced caps: every exit flag >= 0
+    (checked in ``planner_run``), the robot's kernel launched at B=1 only,
+    panda and pointRobot at their goals."""
+    _need_card()
+    sweep = rb.riccati_backward_batched if kind == "boxer" else rp.riccati_backward_packed
+    with chip_smoke.launches_by_batch(1) as tally:
+        before = sweep.launches
+        sc, rec = chip_smoke.planner_run(kind, "cuda", cap)
+    assert sweep.launches > before
+    assert tally and all(B == 1 for _, B in tally)
+    assert sc["planner"]._device.type == sc["sim"]._device.type == "cuda"
+    if kind != "boxer":
+        assert rec["reached_at"] is not None, rec["final_distance"]
+    if kind == "pointRobot":
+        assert rec["min_clearance"] > -0.05
+
+
+@pytest.mark.gpu
+def test_perception_and_global_planner_on_card():
+    """The free-space carve and the obstacle enlargement on the card match
+    their CPU runs (carve atol 1e-4, ``tests/test_perception.py``'s bar; the
+    0/1 map's enlargement exactly), and both default to the card."""
+    _need_card()
+    import numpy as np
+
+    from robot_mpcs_tpu_torch.global_planner.global_planner import GlobalPlanner, enlarge_obstacles
+    from robot_mpcs_tpu_torch.perception import FreeSpaceDecomposition, free_space_halfplanes
+
+    rng = np.random.default_rng(0)
+    pts = torch.as_tensor(rng.uniform(-3, 3, size=(10, 64, 3)), dtype=torch.float32)
+    pos = torch.as_tensor(rng.uniform(-0.5, 0.5, size=(10, 3)), dtype=torch.float32)
+    card = free_space_halfplanes(pts.cuda(), pos.cuda(), number_constraints=6, max_radius=4.0)
+    cpu = free_space_halfplanes(pts, pos, number_constraints=6, max_radius=4.0)
+    assert card.device.type == "cuda"
+    torch.testing.assert_close(card.cpu(), cpu, rtol=0, atol=1e-4)
+    assert FreeSpaceDecomposition()._device.type == "cuda"
+    occ = (rng.random((128, 128)) < 0.15).astype(np.float32)
+    assert np.array_equal(enlarge_obstacles(occ, 2, 0.29), enlarge_obstacles(occ, 2, 0.29, device="cpu"))
+    assert GlobalPlanner([10, 10, 1], [-5.0, -5.0, 0.0], [5.0, 5.0, 1.0]).device.type == "cuda"
+    chip_smoke.global_planner_phase()

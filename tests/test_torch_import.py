@@ -31,8 +31,15 @@ problem = MpcProblem(Setup.from_dict(panda_setup()))
 assert problem.dims.nx == 14 and problem.dims.nu == 7 and problem.dims.N == 20
 assert not any(m == "jax" or m.startswith(("jax.", "robot_mpcs_tpu.")) for m in sys.modules
                if sys.modules[m] is not None)
-print(len(names))
+print(" ".join(names))
 """
+
+#: the modules of the planner slice, each of which must be among them
+SLICE_MODULES = [
+    "planner.mpc_planner", "planner.visualizer", "sim.kinematic_sim",
+    "perception.free_space_decomposition", "global_planner.astar", "global_planner.grid_map",
+    "global_planner.global_planner", "utils.checkpoint", "utils.profiling",
+]
 
 
 def test_port_imports_without_jax_and_yaml():
@@ -45,7 +52,10 @@ def test_port_imports_without_jax_and_yaml():
         timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 16  # every port module
+    names = proc.stdout.strip().splitlines()[-1].split()
+    assert len(names) >= 25  # every port module
+    for m in SLICE_MODULES:
+        assert f"robot_mpcs_tpu_torch.{m}" in names, m
 
 
 def test_port_source_never_imports_jax():
