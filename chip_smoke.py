@@ -76,8 +76,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
    true costs of lanes both converge within 1e-4 relative, converged
    violation <= 1e-4.
 
+8. distributed: the panda fleet (B=4096, 2 steps, no kick) over a
+   ``torch.distributed`` process group. NCCL at world 1 (``mesh=make_mesh()``,
+   the two metric all-reduces run) must equal the plain step: states within
+   1e-6, metrics and exit flags equal. Two ranks on the one card, each its
+   own process (this script with ``--dist-rank``; gloo over CUDA tensors,
+   since NCCL refuses two ranks on one card), 2048 lanes each: both print
+   the same metrics, each rank's shard equals a world-1 runner on its half
+   (flags equal, states within 1e-6), launches per rank by batch size and
+   each rank's step times (the ranks share one card and host: no scaling
+   is read from them). The W=2 checkpoint loaded at W=1 equals the
+   concatenated shards. The kernels were built in phase 2, so the ranks
+   load the cached libraries.
+9. reference form, at a warm panda iterate of the rescue shape (B=512,
+   the path phase's state): the stacked ``values`` expansion equals the
+   split path's (every block within 1e-4 relative); the two solves' flags
+   agree on >= 97% of lanes, converged lanes are feasible to 1e-4, true
+   costs agree within 1e-5 relative where both converged in the same number
+   of inner iterations (see ``hold_solves``), and the structured kernel
+   launched. A pointRobot B=64 solve through the generic (``cost``/``ineq``
+   only) path: cold on the card against the CPU (flags on >= B - 4 lanes,
+   costs 1e-5), warm (after 2 fleet steps) against the values path (costs
+   of lanes both converge within 1e-4, ``tests/test_solver.py``'s bar).
+
 Output: the kernels JSON line (each kernel's ``launches`` from the panda
-fleet and the group), then the card's ``name, power.limit`` line, then the
+fleet and the group, and ``launches_by_path`` for every path), then the card's ``name, power.limit`` line, then the
 result line ``{"ok": true, "device": {...}}`` last.
 """
 
@@ -473,13 +496,12 @@ def profile_windows(torch, fns, kernel_names):
 
 
 def path_phase(torch, rp):
-    """Drive the panda fleet on the card; returns (problem, scenario, launches)."""
-    from robot_mpcs_tpu_torch.config import Setup, panda_setup
-    from robot_mpcs_tpu_torch.models.problem import MpcProblem
+    """Drive the panda fleet on the card; returns (problem, scenario, launches,
+    the state after the counted steps, the scenario on the card)."""
     from robot_mpcs_tpu_torch.parallel.fleet import FleetRunner, random_fleet_scenario
 
     t0 = time.perf_counter()
-    problem = MpcProblem(Setup.from_dict(panda_setup()))
+    problem = panda_problem()
     scenario = random_fleet_scenario(problem, BATCH, seed=0, **PANDA_SAMPLER)
     runner = FleetRunner(problem, BATCH, device="cuda")
     scen = runner.to_device(scenario)
@@ -515,7 +537,7 @@ def path_phase(torch, rp):
         "solves_per_s": BATCH / steady, **m,
     }), flush=True)
     step_breakdown(torch, runner, state, scen)
-    return problem, scenario, launches
+    return problem, scenario, launches, state, scen
 
 
 def step_breakdown(torch, runner, state, scen, steps=2):
@@ -1049,9 +1071,307 @@ def reference_phase(torch, label, problem, scenario):
     check(float(viol.max()) <= 1e-4, f"{label}: converged lanes violate constraints")
 
 
+#: the distributed phase: the panda fleet over a process group for 2 steps
+#: from a cold start, without the kick (its noise depends on the rank)
+DIST_STEPS = 2
+DIST_TIMEOUT_S = 480
+#: the reference-form phase: a warm panda solve at the rescue tier's shape,
+#: and a pointRobot solve through the generic (cost/ineq-only) path
+REF_BATCH = 512
+GENERIC_BATCH = 64
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_steps(torch, runner, scen, steps):
+    """``steps`` synchronized fleet steps from a cold start; returns (state,
+    per-step metrics, per-step ms, per-step exit flags (steps, B))."""
+    flags = []
+    post = runner._post_step
+
+    def recorded(state, scenario, res):
+        flags.append(res.exitflag.clone())
+        return post(state, scenario, res)
+
+    runner._post_step = recorded
+    state = runner.init_state(scen)
+    metrics, ms = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = runner.step(state, scen)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        metrics.append({k: float(v) for k, v in m._asdict().items()})
+    runner._post_step = post
+    return state, metrics, ms, torch.stack(flags)
+
+
+def state_diff(torch, a, b):
+    """Largest |a - b| over the float fields of two fleet states; None when
+    an integer field differs."""
+    for k in ("step", "stall", "no_improve"):
+        if not torch.equal(getattr(a, k).cpu(), getattr(b, k).cpu()):
+            return None
+    return max(float((getattr(a, k).cpu() - getattr(b, k).cpu()).abs().max())
+               for k in ("x", "z_warm", "lam"))
+
+
+def panda_problem():
+    from robot_mpcs_tpu_torch.config import Setup, panda_setup
+    from robot_mpcs_tpu_torch.models.problem import MpcProblem
+
+    return MpcProblem(Setup.from_dict(panda_setup()))
+
+
+def dist_worker(torch, outdir):
+    """One rank of the two-rank panda fleet on one card (``--dist-rank OUTDIR``,
+    rendezvous from the ``ROBOT_MPCS_*`` variables): gloo over CUDA tensors,
+    since NCCL refuses two ranks on one card. Steps its shard, saves a W=2
+    checkpoint from both ranks, writes its state, flags and metrics."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from robot_mpcs_tpu_torch import interop
+    from robot_mpcs_tpu_torch.ops import riccati_packed as rp
+    from robot_mpcs_tpu_torch.parallel import distributed
+    from robot_mpcs_tpu_torch.parallel.fleet import FleetRunner, random_fleet_scenario
+    from robot_mpcs_tpu_torch.parallel.mesh import make_mesh
+    from robot_mpcs_tpu_torch.utils.checkpoint import save_fleet_state
+
+    check(distributed.initialize(backend="gloo", device="cuda:0"), "no rendezvous variables")
+    mesh = make_mesh()
+    problem = panda_problem()
+    scenario = random_fleet_scenario(problem, BATCH, seed=0, **PANDA_SAMPLER)
+    runner = FleetRunner(problem, BATCH, mesh=mesh, kick_scale=0.0)
+    scen = runner.shard_scenario(scenario)
+    distributed.barrier()  # both ranks set up: the timed steps start together
+    rp.riccati_backward_packed.launches = 0
+    with launches_by_batch(DIST_STEPS):
+        state, metrics, ms, flags = run_steps(torch, runner, scen, DIST_STEPS)
+    launches = rp.riccati_backward_packed.launches
+    save_fleet_state(os.path.join(outdir, "w2.npz"), state, extra={"world": 2}, mesh=mesh)
+    np.savez(os.path.join(outdir, f"rank{mesh.rank}.npz"), flags=flags.cpu().numpy(),
+             **interop.state_to_numpy(state))
+    print(json.dumps({"rank": mesh.rank, "batch": BATCH // mesh.world, "step_ms": ms,
+                      "kernel_launches": launches, "metrics": metrics}), flush=True)
+    with open(os.path.join(outdir, f"rank{mesh.rank}.json"), "w") as f:
+        json.dump({"metrics": metrics, "launches": launches}, f)
+    distributed.shutdown()
+    return 0
+
+
+def distributed_phase(torch, rp, problem, scenario):
+    """The sharded fleet: NCCL at world 1 against the plain step, two gloo
+    ranks on the one card against world-1 runners on their halves, and a
+    W=2 checkpoint loaded at W=1. Returns the structured kernel's launches
+    per path."""
+    import shutil
+    import tempfile
+
+    from robot_mpcs_tpu_torch import interop
+    from robot_mpcs_tpu_torch.parallel import distributed
+    from robot_mpcs_tpu_torch.parallel.fleet import FleetRunner, FleetScenario
+    from robot_mpcs_tpu_torch.parallel.mesh import make_mesh
+    from robot_mpcs_tpu_torch.utils.checkpoint import load_fleet_state
+
+    # 1. NCCL at world 1: the two all_reduces run, the rest is the plain step
+    check(distributed.initialize(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl",
+                                 device="cuda:0"), "NCCL world 1 did not initialize")
+    runner = FleetRunner(problem, BATCH, mesh=make_mesh(), kick_scale=0.0)
+    rp.riccati_backward_packed.launches = 0
+    s1, m1, ms1, f1 = run_steps(torch, runner, runner.shard_scenario(scenario), DIST_STEPS)
+    nccl_launches = rp.riccati_backward_packed.launches
+    distributed.shutdown()
+    plain = FleetRunner(problem, BATCH, device="cuda", kick_scale=0.0)
+    s0, m0, ms0, f0 = run_steps(torch, plain, plain.to_device(scenario), DIST_STEPS)
+    diff = state_diff(torch, s1, s0)
+    print(json.dumps({"nccl_world1_step_ms": ms1, "plain_step_ms": ms0, "state_max_abs_diff": diff,
+                      "kernel_launches": nccl_launches, "metrics": m1}), flush=True)
+    check(diff is not None and diff <= 1e-6, f"NCCL world 1 state differs from the plain step: {diff}")
+    check(m1 == m0, f"NCCL world 1 metrics differ from the plain step: {m1} vs {m0}")
+    check(torch.equal(f1, f0), "NCCL world 1 exit flags differ from the plain step")
+
+    # 2. two ranks on the one card, each a process of its own
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    port = free_port()
+    procs = [
+        subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dist-rank", tmp],
+            env=dict(os.environ, ROBOT_MPCS_COORDINATOR=f"127.0.0.1:{port}",
+                     ROBOT_MPCS_NUM_PROCESSES="2", ROBOT_MPCS_PROCESS_ID=str(r)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for r in range(2)
+    ]
+    try:
+        outs = [p.communicate(timeout=DIST_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.splitlines()[-20:]:
+            print(f"[rank {r}] {line}", flush=True)
+        check(p.returncode == 0, f"rank {r} exited with {p.returncode}")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    check(ranks[0]["metrics"] == ranks[1]["metrics"], "the two ranks report other metrics")
+    print("two ranks on one card: step times above share one card and its host, "
+          "so no scaling is read from them", flush=True)
+    half = BATCH // 2
+    shards = []
+    for r in range(2):
+        with np.load(os.path.join(tmp, f"rank{r}.npz")) as data:
+            got = {k: data[k] for k in data.files}
+        rows = slice(r * half, (r + 1) * half)
+        w1 = FleetRunner(problem, half, device="cuda", kick_scale=0.0)
+        want, _, _, flags = run_steps(torch, w1, w1.to_device(FleetScenario(
+            scenario.xinit[rows], scenario.params[rows])), DIST_STEPS)
+        shard = interop.state_from_numpy(got, device="cuda")
+        diff = state_diff(torch, shard, want)
+        same_flags = bool(np.array_equal(got["flags"], flags.cpu().numpy()))
+        print(json.dumps({"rank": r, "vs_world1_half_max_abs_diff": diff,
+                          "flags_equal": same_flags}), flush=True)
+        check(same_flags, f"rank {r}: exit flags differ from a world-1 runner on its half")
+        check(diff is not None and diff <= 1e-6, f"rank {r}: state differs from its half: {diff}")
+        shards.append(shard)
+
+    # 3. the W=2 checkpoint resumes at W=1
+    loaded, extra = load_fleet_state(os.path.join(tmp, "w2.npz"), problem=problem,
+                                     batch_size=BATCH, device="cuda")
+    check(extra == {"world": 2}, f"checkpoint extra {extra}")
+    for k in ("x", "z_warm", "lam", "stall", "best_gdist", "no_improve"):
+        whole = torch.cat([getattr(s, k) for s in shards])
+        check(torch.equal(getattr(loaded, k), whole), f"W=2 checkpoint loaded at W=1: {k} differs")
+    print("W=2 checkpoint loaded at W=1 equals the concatenated shards", flush=True)
+    shutil.rmtree(tmp)
+    return {"nccl world 1": nccl_launches,
+            **{f"rank {r} of 2": ranks[r]["launches"] for r in range(2)}}
+
+
+def hold_solves(torch, label, res_a, res_b, min_agree=4, rtol=1e-5, warm=False):
+    """Path a against path b on the same inputs: flags agree on all but
+    ``min_agree`` lanes, a's converged lanes feasible to 1e-4, true costs of
+    lanes both converge within ``rtol``. ``warm``: costs are held only where
+    both took the same number of inner iterations. A warm solve stops once
+    its Newton step is below tol_stationarity (1e-3) and the f32 merit sees
+    no gain, so two expansions equal to f32 rounding can stop at different
+    points inside that tolerance; those lanes' costs are printed, not held."""
+    B = res_a.exitflag.shape[0]
+    fa, fb = res_a.exitflag.cpu(), res_b.exitflag.cpu()
+    agree = int((fa == fb).sum())
+    both = (fa == 1) & (fb == 1)
+    same = res_a.iterations.cpu() == res_b.iterations.cpu()
+    held = both & same if warm else both
+    rel = (res_a.cost.cpu() - res_b.cost.cpu()).abs() / res_b.cost.cpu().abs().clamp(min=1e-6)
+    viol = res_a.violation.cpu()[fa == 1]
+    print(json.dumps({
+        "compare": label, "batch": B, "flags_agree": agree, "converged_a": int((fa == 1).sum()),
+        "converged_b": int((fb == 1).sum()), "converged_both": int(both.sum()),
+        "held_lanes": int(held.sum()), "max_rel_cost_held": float(rel[held].max()),
+        "max_rel_cost_both": float(rel[both].max()), "max_violation_converged": float(viol.max()),
+    }), flush=True)
+    check(bool(held.any()), f"{label}: no lane to hold")
+    check(agree >= B - min_agree, f"{label}: flags agree on only {agree}/{B} lanes")
+    check(float(rel[held].max()) <= rtol, f"{label}: true costs of converged lanes disagree")
+    check(float(viol.max()) <= 1e-4, f"{label}: converged lanes violate constraints")
+
+
+def reference_form_phase(torch, rp, problem, state, scen):
+    """The JAX package's reference-form solver API on the card: at a warm
+    panda iterate of the rescue shape, the stacked ``values`` Gauss-Newton
+    expansion against the split path's, then the two solves; a pointRobot
+    solve through the generic (cost/ineq-only, exact-Hessian) path. Returns
+    the structured kernel's launches per path."""
+    from robot_mpcs_tpu_torch.config import Setup, point_robot_setup
+    from robot_mpcs_tpu_torch.models.problem import MpcProblem
+    from robot_mpcs_tpu_torch.parallel.fleet import FleetRunner, random_fleet_scenario
+    from robot_mpcs_tpu_torch.solver.al_ilqr import build_solver
+
+    def reference_solver(prob, generic=False, device="cuda"):
+        """The reference form, pinned at stage 0 like the split path."""
+        stage, w_lb, w_ub = prob.solver_callbacks()
+        if generic:
+            stage = stage._replace(values=None, weights=None)
+        d = prob.dims
+        return build_solver(stage, nx=d.nx, ns=d.ns, nu=d.nu, N=d.N, n_con=prob.n_con,
+                            n_res=prob.n_res, n_bar=prob.n_bar, w_lb=w_lb, w_ub=w_ub,
+                            cfg=prob.setup.solver, pinned_rows=prob.reference_constraint_rows()[1],
+                            device=device)
+
+    def timed(solve, *args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = solve(*args)
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t) * 1e3
+
+    B = REF_BATCH
+    perm = torch.as_tensor(problem.reference_constraint_rows()[0], device=state.lam.device)
+    x, params, z, lam = state.x[:B], scen.params[:B], state.z_warm[:B], state.lam[:B]
+    split_solve, values_solve = problem.build_solver(device="cuda"), reference_solver(problem)
+    # the expansions at the warm iterate: the same Gauss-Newton model
+    nx = problem.dims.nx
+    mu = torch.full((B,), 100.0, device="cuda")
+    blocks = [f._internals["stage_expansion_blocks"](z[..., :nx], z[..., nx:], params, lam_f, mu)
+              for f, lam_f in ((values_solve, lam[..., perm]), (split_solve, lam))]
+    err = max(float(((a - b).abs() / (1.0 + b.abs())).max()) for a, b in zip(*blocks))
+    print(json.dumps({"expansion_blocks_values_vs_split": B, "max_rel_err": err}), flush=True)
+    check(err <= 1e-4, f"values-path expansion differs from the split path's: {err}")
+    res_split, split_ms = timed(split_solve, x, params, z, lam)
+    rp.riccati_backward_packed.launches = 0
+    res_values, values_ms = timed(values_solve, x, params, z, lam[..., perm])
+    values_launches = rp.riccati_backward_packed.launches
+    print(json.dumps({"values_solve": B, "values_ms": values_ms, "split_ms": split_ms,
+                      "kernel_launches": values_launches}), flush=True)
+    check(values_launches > 0, "the values-path solve never launched the structured kernel")
+    hold_solves(torch, "panda values path vs split path (warm)", res_values, res_split,
+                min_agree=B * 3 // 100, warm=True)
+
+    pr = MpcProblem(Setup.from_dict(point_robot_setup()))
+    Bg = GENERIC_BATCH
+    sc = random_fleet_scenario(pr, Bg, seed=0, **GROUP_SAMPLERS["pointRobot"])
+    d = pr.dims
+    z0 = torch.zeros((Bg, d.N, d.nz))
+    z0[:, :, : d.nx] = sc.xinit[:, None, :]
+    cold = (sc.xinit, sc.params, z0, torch.zeros((Bg, d.N, pr.n_con)))
+    rp.riccati_backward_packed.launches = 0
+    res_gen, gen_ms = timed(reference_solver(pr, generic=True), *cold)
+    generic_launches = rp.riccati_backward_packed.launches
+    check(generic_launches > 0, "the generic-path solve never launched the structured kernel")
+    hold_solves(torch, "pointRobot generic path, card vs CPU (cold)", res_gen,
+                reference_solver(pr, generic=True, device="cpu")(*cold))
+    # the exact-Hessian model leaves lanes budget-bound (flag 0) that the
+    # Gauss-Newton paths converge, in the JAX package too: against the
+    # values path its flags are printed, and the optimum of lanes both
+    # converge is held at tests/test_solver.py's generic-vs-structured bar
+    fleet = FleetRunner(pr, Bg, device="cuda", kick_scale=0.0)
+    warm, _, _, _ = run_steps(torch, fleet, fleet.to_device(sc), 2)
+    args = (warm.x, fleet.to_device(sc).params, warm.z_warm, warm.lam)
+    res_gen_w, gen_w_ms = timed(reference_solver(pr, generic=True), *args)
+    res_val_w, val_w_ms = timed(reference_solver(pr), *args)
+    print(json.dumps({"generic_solve": Bg, "cold_ms": gen_ms, "warm_ms": gen_w_ms,
+                      "values_warm_ms": val_w_ms, "kernel_launches_cold": generic_launches}),
+          flush=True)
+    hold_solves(torch, "pointRobot generic path vs values path (warm)", res_gen_w, res_val_w,
+                min_agree=Bg, rtol=1e-4)
+    return {"values solve (panda, B=512)": values_launches,
+            "generic solve (pointRobot, B=64, cold)": generic_launches}
+
+
 def main() -> int:
     import torch
 
+    if len(sys.argv) > 1 and sys.argv[1] == "--dist-rank":
+        return dist_worker(torch, sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
@@ -1076,16 +1396,24 @@ def main() -> int:
     packed = packed_kernel_phase(torch, rp, shapes)
     batched = batched_kernel_phase(torch, rb, shapes)
     print(f"kernel phases done at {time.perf_counter() - t0:.1f} s", flush=True)
-    panda, panda_scenario, packed["launches"] = path_phase(torch, rp)
+    panda, panda_scenario, packed["launches"], panda_state, panda_scen = path_phase(torch, rp)
     print(f"panda path done at {time.perf_counter() - t0:.1f} s", flush=True)
-    boxer, boxer_scenario, _, batched["launches"] = group_phase(torch, rp, rb)
+    boxer, boxer_scenario, group_packed, batched["launches"] = group_phase(torch, rp, rb)
     print(f"group path done at {time.perf_counter() - t0:.1f} s", flush=True)
     planner_phase(torch, rp, rb)
     print(f"planner path done at {time.perf_counter() - t0:.1f} s", flush=True)
     reference_phase(torch, "panda", panda, panda_scenario)
     reference_phase(torch, "boxer", boxer, boxer_scenario)
+    print(f"card vs CPU done at {time.perf_counter() - t0:.1f} s", flush=True)
+    sharded = distributed_phase(torch, rp, panda, panda_scenario)
+    print(f"distributed path done at {time.perf_counter() - t0:.1f} s", flush=True)
+    reference_form = reference_form_phase(torch, rp, panda, panda_state, panda_scen)
     print(f"all phases done at {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # launches is the main path's count; each path's own beside it
+    packed["launches_by_path"] = {"panda fleet": packed["launches"], "group": group_packed,
+                                  **sharded, **reference_form}
+    batched["launches_by_path"] = {"group": batched["launches"]}
     print(json.dumps({"kernels": [packed, batched]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({

@@ -8,6 +8,8 @@ and get numpy back for the JAX side.
 
 Layouts are the JAX package's, batch-first: a scenario is ``xinit (B, nx)``
 and ``params (B, N, npar)`` in the paramMap layout (``models/params.py``).
+Tensors land on the card unless ``device`` says otherwise (``"cpu"``), as at
+every entry point of the port.
 """
 
 from __future__ import annotations
@@ -18,22 +20,24 @@ import numpy as np
 import torch
 
 from robot_mpcs_tpu_torch.parallel.fleet import FleetScenario, FleetState
+from robot_mpcs_tpu_torch.utils.devices import resolve_device
 
 _FLOAT_STATE = ("x", "z_warm", "lam", "best_gdist")
 _INT_STATE = ("step", "stall", "no_improve")
 
 
-def _f32(a, device=None) -> torch.Tensor:
+def _f32(a, device) -> torch.Tensor:
     # torch.tensor copies: arrays from JAX are read-only views of its buffers
     return torch.tensor(np.asarray(a, dtype=np.float32), dtype=torch.float32, device=device)
 
 
-def _i32(a, device=None) -> torch.Tensor:
+def _i32(a, device) -> torch.Tensor:
     return torch.tensor(np.asarray(a, dtype=np.int32), dtype=torch.int32, device=device)
 
 
-def scenario_from_numpy(xinit, params, device=None) -> FleetScenario:
+def scenario_from_numpy(xinit, params, device="cuda") -> FleetScenario:
     """A JAX ``FleetScenario``'s ``(xinit (B, nx), params (B, N, npar))``."""
+    device = resolve_device(device)
     return FleetScenario(xinit=_f32(xinit, device), params=_f32(params, device))
 
 
@@ -44,8 +48,9 @@ def scenario_to_numpy(scenario: FleetScenario) -> Dict[str, np.ndarray]:
     }
 
 
-def state_from_numpy(arrays: Dict[str, np.ndarray], device=None) -> FleetState:
+def state_from_numpy(arrays: Dict[str, np.ndarray], device="cuda") -> FleetState:
     """A JAX ``FleetState`` given as a dict of numpy arrays (its field names)."""
+    device = resolve_device(device)
     return FleetState(
         **{k: _f32(arrays[k], device) for k in _FLOAT_STATE},
         **{k: _i32(arrays[k], device) for k in _INT_STATE},
@@ -61,7 +66,8 @@ def state_to_numpy(state: FleetState) -> Dict[str, np.ndarray]:
     return out
 
 
-def solver_inputs_from_numpy(xinit, params, z0, lam0, device=None):
+def solver_inputs_from_numpy(xinit, params, z0, lam0, device="cuda"):
     """The solver's ``(xinit (B, nx), params (B, N, npar), z0 (B, N, nz),
     lam0 (B, N, n_con))`` as float32 tensors."""
+    device = resolve_device(device)
     return tuple(_f32(a, device) for a in (xinit, params, z0, lam0))

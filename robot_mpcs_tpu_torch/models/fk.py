@@ -27,12 +27,28 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from robot_mpcs_tpu_torch.models.urdf import UrdfModel, joint_origin_transform
+from robot_mpcs_tpu_torch.models.urdf import UrdfModel, joint_origin_transform, load_urdf
 
 # segment kinds
 _FIXED = 0
 _REVOLUTE = 1
 _PRISMATIC = 2
+
+
+def planar_base_transform(x: torch.Tensor, y: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
+    """World->base transform of a differential-drive base, Rz(theta) at
+    (x, y, 0): shape ``x.shape + (4, 4)``."""
+    c, s = torch.cos(theta), torch.sin(theta)
+    zero, one = torch.zeros_like(x), torch.ones_like(x)
+    return torch.stack(
+        [
+            torch.stack([c, -s, zero, x], -1),
+            torch.stack([s, c, zero, y], -1),
+            torch.stack([zero, zero, one, zero], -1),
+            torch.stack([zero, zero, zero, one], -1),
+        ],
+        -2,
+    )
 
 
 @dataclass(frozen=True)
@@ -123,6 +139,12 @@ class RobotKinematics:
         #: (dtype, device) -> per-segment constant tensors (built on first use)
         self._consts: Dict[Tuple, Dict[Tuple, Tuple[torch.Tensor, ...]]] = {}
 
+    @classmethod
+    def from_urdf_file(
+        cls, path: str, root_link: str, end_link: str, base_type: str = "holonomic"
+    ) -> "RobotKinematics":
+        return cls(load_urdf(path), root_link, end_link, base_type)
+
     def _compile(self, link: str) -> List[_Segment]:
         if link not in self._chains:
             self._chains[link] = _compile_chain(
@@ -151,17 +173,8 @@ class RobotKinematics:
         """(R, p) of the world->root transform, shapes (..., 3, 3) and (..., 3)."""
         bshape = q.shape[:-1]
         if self.base_type == "diffdrive":
-            c, s = torch.cos(q[..., 2]), torch.sin(q[..., 2])
-            zero, one = torch.zeros_like(c), torch.ones_like(c)
-            R = torch.stack(
-                [
-                    torch.stack([c, -s, zero], -1),
-                    torch.stack([s, c, zero], -1),
-                    torch.stack([zero, zero, one], -1),
-                ],
-                -2,
-            )
-            return R, torch.stack([q[..., 0], q[..., 1], zero], -1)
+            t = planar_base_transform(q[..., 0], q[..., 1], q[..., 2])
+            return t[..., :3, :3], t[..., :3, 3]
         R = torch.eye(3, dtype=q.dtype, device=q.device).expand(bshape + (3, 3))
         return R, torch.zeros(bshape + (3,), dtype=q.dtype, device=q.device)
 
@@ -207,6 +220,13 @@ class RobotKinematics:
                 key = new_key
             out.append((R, p, recs))
         return out
+
+    def fk_frame(self, q: torch.Tensor, link: Optional[str] = None) -> torch.Tensor:
+        """Homogeneous transform root->link, shape ``(..., 4, 4)``."""
+        (R, p, _), = self._walk_links(q, [link or self.end_link], False)
+        bottom = torch.zeros(q.shape[:-1] + (1, 4), dtype=q.dtype, device=q.device)
+        bottom[..., 0, 3] = 1.0
+        return torch.cat([torch.cat([R, p[..., None]], -1), bottom], -2)
 
     def fk_pos(self, q: torch.Tensor, link: Optional[str] = None) -> torch.Tensor:
         """Position of ``link`` in the root frame, shape (..., 3)

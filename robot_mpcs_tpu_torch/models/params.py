@@ -66,6 +66,21 @@ class ParamMap:
             for name, (start, n) in self.entries.items()
         }
 
+    @classmethod
+    def from_reference_dict(cls, d: Dict[str, List[int]]) -> "ParamMap":
+        """Rebuild from a paramMap.yaml mapping (name -> flat index list);
+        every entry must be a contiguous range."""
+        pm = cls()
+        total = 0
+        for name, idx in d.items():
+            idx = list(idx)
+            if idx != list(range(idx[0], idx[0] + len(idx))):
+                raise ValueError(f"param entry {name!r} is not contiguous: {idx}")
+            pm.entries[name] = (idx[0], len(idx))
+            total = max(total, idx[0] + len(idx))
+        pm.npar = total
+        return pm
+
 
 #: Sentinel "no obstacle" padding values (reference ``EmptyObstacle``,
 #: ``mpcPlanner.py:18-26``): position -100, radius -100 makes the distance

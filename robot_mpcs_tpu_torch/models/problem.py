@@ -6,17 +6,18 @@ Mirrors the role of reference ``robotmpcs/models/mpcModel.py`` (and
 * the kinematics + dimensions,
 * the inequality/objective component stacks (in config order — this fixes
   the ``paramMap`` parameter ABI, see ``params.py``),
-* the two-family stage rows (``split_callbacks``) and the discrete dynamics
-  consumed by the solver,
+* the canonical stage functions (``stage_objective``, ``stage_inequalities``)
+  and the solver's callbacks in both forms: the JAX package's reference form
+  (``solver_callbacks``: ``cost``, ``ineq``, stacked ``values``/``weights``)
+  and the two-family split rows (``split_callbacks``) that
+  ``MpcProblem.build_solver`` runs,
 * the variable bounds (default box +-100 as in ``mpcModel.py:23-27``).
 
 Every stage function is batch-first: ``z (..., nz)`` and ``p (..., npar)``
 with the same leading dimensions. The solver-artifact directory
 (``generate_solver`` / ``from_solver_dir``) holds the same three YAML files
 as the JAX package's; the compiled code lives in the kernel build cache
-(``build/robot_mpcs_tpu_torch/``), not in the directory. Not ported: the
-canonical per-component ``stage_objective`` / ``stage_inequalities`` (the
-port's solver runs only the split-row form).
+(``build/robot_mpcs_tpu_torch/``), not in the directory.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import torch
 
 from robot_mpcs_tpu_torch.assets import builtin_model
 from robot_mpcs_tpu_torch.config import Setup, SolverConfiguration
-from robot_mpcs_tpu_torch.models.components import FkEval, ModelContext, cat_rows
+from robot_mpcs_tpu_torch.models.components import FkEval, ModelContext, cat_rows, safe_barrier
 from robot_mpcs_tpu_torch.models.dimensions import ProblemDimensions
 from robot_mpcs_tpu_torch.models.dynamics import (
     constant_dynamics_jacobians,
@@ -155,6 +156,56 @@ class MpcProblem:
             "m": self.dims.m,
             "constraints": list(self.mpc.constraints),
         }
+
+    # --------------------------------------------------- stage functions
+
+    def _fk_all(self, z: torch.Tensor) -> FkEval:
+        """Positions (no Jacobians) of every link any component reads."""
+        links = [l for c in self.obj_components + self.ineq_components for l in c.fk_links()]
+        return FkEval(self.kin, z[..., : self.dims.n], links, jac=False)
+
+    def _stage_rows(self, z: torch.Tensor, p: torch.Tensor):
+        """Per objective component, its residual and barrier rows and
+        weights in the canonical order (q family, then affine): a list of
+        ``(r, w_r, b, w_b)``."""
+        pm = self.param_map
+        fk = self._fk_all(z)
+        out = []
+        for c in self.obj_components:
+            wrq, wbq, wra, wba = c.weights(p, pm)
+            r = torch.cat([c.residuals_q(fk, p, pm)[0], c.residuals_aff(z, p, pm)], -1)
+            b = torch.cat([c.barriers_q(fk, p, pm)[0], c.barriers_aff(z, p, pm)], -1)
+            out.append((r, torch.cat([wrq, wra], -1), b, torch.cat([wbq, wba], -1)))
+        return out
+
+    def stage_objective(self, z: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+        """Total stage cost ``(...,)``: modules + u'diag(wu)u + ws s^2
+        (reference ``ObjectiveManager.eval_objectives``, :28-42; the terminal
+        cost is the same). Barrier rows are clamped at ``BARRIER_EPS``."""
+        pm, dims = self.param_map, self.dims
+        total = z.new_zeros(z.shape[:-1])
+        for r, wr, b, wb in self._stage_rows(z, p):
+            total = total + torch.sum(wr * r * r, -1) + torch.sum(wb / safe_barrier(b), -1)
+        u = z[..., dims.nx + dims.ns :]
+        total = total + torch.sum(pm.get(p, "wu") * u * u, -1)
+        if dims.ns:
+            total = total + pm.get(p, "ws")[..., 0] * z[..., dims.nx] ** 2
+        return total
+
+    def stage_inequalities(self, z: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+        """Module inequality rows ``(..., n_ineq)`` in config order,
+        slack-shifted when ns > 0 (the documented intent of
+        ``InequalityManager.eval_inequalities``)."""
+        pm = self.param_map
+        fk = self._fk_all(z)
+        rows = [
+            c.eval_constraint_q(fk, p, pm)[0] if c.q_dependent else c.eval_constraint(z, p, pm)
+            for c in self.ineq_components
+        ]
+        out = torch.cat(rows, -1) if rows else z.new_zeros(z.shape[:-1] + (0,))
+        if self.dims.ns:
+            out = out + z[..., self.dims.nx, None]
+        return out
 
     # ----------------------------------------------------- solver wiring
 
@@ -309,33 +360,114 @@ class MpcProblem:
             "n_q": dims.n,
         }
 
-    def solver_callbacks(self):
-        """StageFunctions in the solver's batched (x, w, p) convention with
-        w = [s, u], the split-row layout, and (w_lb, w_ub) clamp bounds. The
-        port carries only the two-family split form (``split_callbacks``);
-        the JAX package's stacked ``values``/``weights`` and exact-Hessian
-        paths serve custom problems and are not ported. ``dyn_jac`` is the
-        constant ``(A, B)`` pair of linear (holonomic) dynamics, else None:
-        the solver differentiates the diff-drive ``dynamics`` (forward-mode
-        ``dynamics_jacobians``, as the JAX package's per-stage jacfwd)."""
-        from robot_mpcs_tpu_torch.solver.al_ilqr import StageFunctions
-
+    def _w_bounds(self):
+        """(w_lb, w_ub): the solver's clamp bounds on ``w = [s, u]``."""
         dims = self.dims
-        split = self.split_callbacks()
         w_lb = np.concatenate(
             ([self.limits["s"]["low"]] if dims.ns else []) + [self.limits["u"]["low"]]
         )
         w_ub = np.concatenate(
             ([self.limits["s"]["high"]] if dims.ns else []) + [self.limits["u"]["high"]]
         )
+        return w_lb.astype(np.float32), w_ub.astype(np.float32)
+
+    def solver_callbacks(self):
+        """``(StageFunctions, w_lb, w_ub)`` in the JAX package's reference
+        form (``problem.py:343-414`` there): ``cost``, ``ineq`` (module rows
+        then bound rows), the stacked ``values`` ``[residuals; barriers;
+        constraints]`` and ``weights``, the dynamics and ``dyn_jac`` (the
+        constant ``(A, B)`` of linear dynamics, else None). Every callback is
+        batch-first and functional, so ``build_solver`` can differentiate it
+        with ``torch.func``; ``n_res``/``n_bar``/``n_con`` size it."""
+        from robot_mpcs_tpu_torch.solver.al_ilqr import StageFunctions
+
+        dims = self.dims
+        pm = self.param_map
+        rows = self.bound_rows()
+        idx = torch.as_tensor([r[0] for r in rows], dtype=torch.int64)
+        sign = np.array([r[1] for r in rows], np.float32)
+        bnd = np.array([r[2] for r in rows], np.float32)
+
+        def bound_rows(z):
+            t = lambda a: torch.as_tensor(a, dtype=z.dtype, device=z.device)
+            return t(sign) * (torch.index_select(z, -1, idx.to(z.device)) - t(bnd))
+
+        def cost(x, w, p):
+            return self.stage_objective(torch.cat([x, w], -1), p)
+
+        def ineq(x, w, p):
+            z = torch.cat([x, w], -1)
+            return torch.cat([self.stage_inequalities(z, p), bound_rows(z)], -1)
+
+        def values(x, w, p):
+            z = torch.cat([x, w], -1)
+            stage = self._stage_rows(z, p)
+            res = [r for r, _, _, _ in stage] + [z[..., dims.nx + dims.ns :]]
+            if dims.ns:
+                res.append(z[..., dims.nx : dims.nx + dims.ns])  # slack row (weight ws)
+            bars = [b for _, _, b, _ in stage]
+            return torch.cat(res + bars + [ineq(x, w, p)], -1)
+
+        def weights(p):
+            """(w_res, w_bar): the weight vectors depend on p only."""
+            z0 = p.new_zeros(p.shape[:-1] + (dims.nz,))
+            stage = self._stage_rows(z0, p)
+            w_res = [w for _, w, _, _ in stage] + [pm.get(p, "wu")]
+            if dims.ns:
+                w_res.append(pm.get(p, "ws"))
+            return torch.cat(w_res, -1), torch.cat([w for _, _, _, w in stage] + [z0[..., :0]], -1)
+
         stage = StageFunctions(
             dynamics=self.dynamics,
+            cost=cost,
+            ineq=ineq,
+            values=values,
+            weights=weights,
             dyn_jac=constant_dynamics_jacobians(dims, self.dynamics),
+        )
+        return (stage,) + self._w_bounds()
+
+    def reference_constraint_rows(self):
+        """How the split form's constraint rows map onto the reference
+        form's: ``(perm, pinned)`` with row ``i`` of ``solver_callbacks``'
+        ``ineq`` (module rows in config order, then bound rows) being row
+        ``perm[i]`` of the split stack (q-family module rows, affine module
+        rows, bound rows), so ``lam_split[..., perm]`` is the same
+        multiplier warm start in the reference layout; ``pinned`` are the
+        reference rows the split path pins at stage 0, as ``build_solver``'s
+        ``pinned_rows`` for a reference-form solve of the same problem."""
+        from robot_mpcs_tpu_torch.solver.al_ilqr import split_pinned_rows
+
+        split = self.split_callbacks()
+        off = {True: 0, False: split["q_seg"][2]}
+        perm = []
+        for c in self.ineq_components:
+            perm.extend(range(off[c.q_dependent], off[c.q_dependent] + c.n_ineq))
+            off[c.q_dependent] += c.n_ineq
+        perm = np.asarray(perm + list(range(off[False], self.n_con)), np.int64)
+        pinned = split_pinned_rows(
+            split["q_seg"], split["aff_seg"], split["S_aff"], self.dims.nx, self.dims.ns
+        )
+        return perm, pinned[perm]
+
+    def split_solver_callbacks(self):
+        """StageFunctions of the two-family split form (``split_callbacks``),
+        the layout that ``build_solver`` needs for it, and (w_lb, w_ub).
+        ``dyn_jac`` is the constant ``(A, B)`` pair of linear (holonomic)
+        dynamics, else None: the solver differentiates the diff-drive
+        ``dynamics`` (forward-mode ``dynamics_jacobians``, as the JAX
+        package's per-stage jacfwd)."""
+        from robot_mpcs_tpu_torch.solver.al_ilqr import StageFunctions
+
+        split = self.split_callbacks()
+        stage = StageFunctions(
+            dynamics=self.dynamics,
+            dyn_jac=constant_dynamics_jacobians(self.dims, self.dynamics),
             q_rows=split["q_rows"],
             aff_rows=split["aff_rows"],
             weights_split=split["weights_split"],
         )
-        return stage, split, w_lb.astype(np.float32), w_ub.astype(np.float32)
+        return (stage, split) + self._w_bounds()
 
     def build_solver(
         self, cfg: Optional[SolverConfiguration] = None, device="cuda"
@@ -344,7 +476,7 @@ class MpcProblem:
         (default the CUDA card; ``"cpu"`` for the CPU)."""
         from robot_mpcs_tpu_torch.solver.al_ilqr import build_solver
 
-        stage, split, w_lb, w_ub = self.solver_callbacks()
+        stage, split, w_lb, w_ub = self.split_solver_callbacks()
         return build_solver(
             stage,
             nx=self.dims.nx,

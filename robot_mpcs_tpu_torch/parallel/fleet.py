@@ -1,4 +1,4 @@
-"""Batched fleet execution on one device (port of ``robot_mpcs_tpu.parallel.fleet``).
+"""Batched fleet execution (port of ``robot_mpcs_tpu.parallel.fleet``).
 
 One ``FleetRunner.step`` advances every scenario by one control step:
 batched AL-iLQR solve, straggler rescue re-solve, action extraction, plant
@@ -6,11 +6,17 @@ integration, shift-horizon warm start, metric reduction. All state lives on
 the runner's ``device``; the only host traffic per step is the solver's
 loop conditions and whatever metrics the caller reads.
 
-This slice is single-device: the JAX package's mesh, ``shard_map`` step,
-AOT export and ``artifact_dir`` are later slices. With one device the
-rescue gather runs over a single group (``G = 1`` in the JAX code). Nothing
-here depends on the robot family: holonomic and diff-drive problems differ
-only inside the solver (which Riccati sweep) and the scenario sampler.
+With a ``mesh`` (``parallel/mesh.py``: one process per card over
+``torch.distributed``) each rank holds and steps the contiguous shard
+``B/W`` of the global batch, as the JAX package's ``shard_map`` step does:
+the solver's masked loops, the rescue gather and the post-step stay
+rank-local, and the only cross-rank traffic is one ``all_reduce(SUM)`` and
+one ``all_reduce(MAX)`` of the metrics' numerators, denominators and maxima,
+so every rank returns the same global ``FleetMetrics``. Without a mesh (or
+with a mesh that has no process group) the step runs no collective. AOT
+export and ``artifact_dir`` have no counterpart here. Nothing depends on the
+robot family: holonomic and diff-drive problems differ only inside the
+solver (which Riccati sweep) and the scenario sampler.
 """
 
 from __future__ import annotations
@@ -21,13 +27,16 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from robot_mpcs_tpu_torch.config import SolverConfiguration
 from robot_mpcs_tpu_torch.models.problem import MpcProblem
+from robot_mpcs_tpu_torch.parallel.mesh import Mesh, shard_batch
 from robot_mpcs_tpu_torch.solver.types import SolveResult
 from robot_mpcs_tpu_torch.utils.devices import resolve_device
 
-#: seed of the local-minimum kick noise; each step draws from seed + step
+#: seed of the local-minimum kick noise; rank r draws at step t from
+#: seed + t + r * 2**32 (rank 0: seed + t)
 KICK_SEED = 0x5EED
 
 
@@ -77,22 +86,25 @@ class FleetMetrics(NamedTuple):
 
 
 class FleetRunner:
-    """Runs B scenarios of one problem class in lockstep on one device.
+    """Runs B scenarios of one problem class in lockstep: on one device, or
+    sharded over the ranks of a ``mesh`` (``B/W`` lanes per rank).
 
     **Straggler compaction** (on by default): phase 1 runs every lane with a
     short outer budget (``phase1_al_iterations``), then the worst unconverged
     lanes are gathered into a ``1/compaction_ratio``-size sub-batch and
     re-solved warm with a richer budget. ``rescue_tiers``, ``stall_reset_after``
     and the ``kick_*`` local-minimum escape follow the JAX package's
-    ``FleetRunner`` exactly (fleet.py:114-156 there). Runs on the CUDA card
-    unless ``device`` says otherwise (``"cpu"``).
+    ``FleetRunner`` exactly (fleet.py:114-156 there); each rescue tier's
+    slots come from the rank's batch ``B/W``. Runs on the CUDA card unless
+    ``device`` says otherwise (``"cpu"``); with a ``mesh``, on its device.
+    ``batch_size`` is the global B and must divide by the mesh size.
     """
 
     def __init__(
         self,
         problem: MpcProblem,
         batch_size: int,
-        device="cuda",
+        device=None,
         solver_cfg: Optional[SolverConfiguration] = None,
         compaction_ratio: int = 8,
         phase1_al_iterations: int = 2,
@@ -101,11 +113,19 @@ class FleetRunner:
         kick_after: int = 25,
         kick_gdist: float = 0.15,
         kick_scale: float = 1.0,
+        mesh: Optional[Mesh] = None,
     ):
         self.problem = problem
         self.dims = problem.dims
         self.batch = batch_size
-        self.device = resolve_device(device)
+        if mesh is None:  # one device, no process group
+            mesh = Mesh(1, 0, resolve_device(device if device is not None else "cuda"))
+        elif device is not None and resolve_device(device) != mesh.device:
+            raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+        self.mesh = mesh
+        self.device = mesh.device
+        local = mesh.local_slice(batch_size)  # raises unless B divides by W
+        b_loc = local.stop - local.start
         base_cfg = solver_cfg if solver_cfg is not None else problem.setup.solver
         self._stall_reset_after = int(stall_reset_after)
         self._kick_after = int(kick_after)
@@ -128,11 +148,11 @@ class FleetRunner:
         for tier in rescue_tiers:
             ratio, al_it, ilqr_it = tier[:3]
             ls = tier[3] if len(tier) > 3 else base_cfg.line_search_steps
-            k = batch_size // int(ratio)
+            k = b_loc // int(ratio)
             if k < 8:
                 warnings.warn(
-                    f"FleetRunner: rescue tier 1/{ratio} disabled — batch "
-                    f"{batch_size} yields {k} < 8 rescue slots. Affected lanes "
+                    f"FleetRunner: rescue tier 1/{ratio} disabled — per-rank "
+                    f"batch {b_loc} yields {k} < 8 rescue slots. Affected lanes "
                     f"run the remaining tiers (or phase 1 only). Pass "
                     f"compaction_ratio=0 / rescue_tiers=[] to silence.",
                     stacklevel=2,
@@ -285,6 +305,12 @@ class FleetRunner:
             params=torch.as_tensor(scenario.params, dtype=torch.float32, device=self.device),
         )
 
+    def shard_scenario(self, scenario: FleetScenario) -> FleetScenario:
+        """This rank's shard of a global scenario (every rank holds all of
+        it, e.g. from a shared seed) on the runner's device; at world 1 the
+        whole scenario."""
+        return self.to_device(shard_batch(self.mesh, scenario))
+
     def step(self, state: FleetState, scenario: FleetScenario):
         """Advance every lane one control step; returns (new state, metrics)."""
         dims = self.dims
@@ -303,9 +329,9 @@ class FleetRunner:
             # randomized restart for plateaued lanes: zero-mean noise on the
             # warm start's [s, u] entries — the slack entries too, exactly
             # as fleet.py:457 of the JAX package adds it. The noise depends
-            # only on the step (JAX folds the step into its key the same
-            # way); torch's generator draws other numbers than jax.random.
-            self._gen.manual_seed(KICK_SEED + int(state.step))
+            # on the step and the rank (JAX folds both into its key);
+            # torch's generator draws other numbers than jax.random.
+            self._gen.manual_seed(KICK_SEED + int(state.step) + (self.mesh.rank << 32))
             noise = self._kick_scale * torch.randn(
                 z_shift[..., dims.nx :].shape, generator=self._gen,
                 dtype=z_shift.dtype, device=self.device,
@@ -319,40 +345,59 @@ class FleetRunner:
         )
         return new_state, metrics
 
-    @staticmethod
-    def _metrics(res: SolveResult, was_reset, gdist, overflow, bad_total) -> FleetMetrics:
+    def _metrics(self, res: SolveResult, was_reset, gdist, overflow, bad_total) -> FleetMetrics:
         """Batch reductions (fleet.py:460-502). Failed lanes are masked out
-        of the means so one NaN lane cannot poison the aggregates."""
-        B = float(res.exitflag.shape[0])
+        of the means so one NaN lane cannot poison the aggregates. The
+        rank-local sums and maxima travel in one vector each: with a process
+        group, one all_reduce(SUM) and one all_reduce(MAX) make them global."""
         ok = ~was_reset
-        n_ok = torch.clamp(torch.sum(ok.to(torch.float32)), min=1.0)
-
-        def ok_mean(v):
-            return torch.sum(torch.where(ok, v, 0.0)) / n_ok
-
-        def class_max(v, mask):
-            return torch.amax(torch.where(mask, v, 0.0))
-
         conv = res.exitflag == 1
+        f32 = lambda v: v.to(torch.float32)
+
+        def masked(v, mask):
+            return torch.where(mask, v, 0.0)
+
         v0 = res.violation0_raw
+        sums = torch.stack([
+            torch.sum(f32(ok)),
+            torch.sum(f32(conv)),
+            torch.sum(masked(res.cost, ok)),
+            torch.sum(masked(gdist, ok)),
+            torch.sum(f32(was_reset)),
+            torch.sum(f32(res.iterations)),
+            f32(overflow),
+            f32(bad_total),
+        ])
+        maxes = torch.stack([
+            torch.amax(masked(res.violation, ok)),
+            torch.amax(masked(res.violation, conv)),
+            torch.amax(masked(res.violation, res.exitflag == 0)),
+            f32(torch.amax(res.iterations)),
+            torch.amax(torch.where(torch.isfinite(v0), v0, 0.0)),
+        ])
+        if self.mesh.group is not None:
+            dist.all_reduce(sums, op=dist.ReduceOp.SUM, group=self.mesh.group)
+            dist.all_reduce(maxes, op=dist.ReduceOp.MAX, group=self.mesh.group)
+        B = float(res.exitflag.shape[0] * self.mesh.world)
+        n_ok = torch.clamp(sums[0], min=1.0)
         return FleetMetrics(
-            converged_fraction=torch.sum(conv.to(torch.float32)) / B,
-            mean_cost=ok_mean(res.cost),
-            max_violation=class_max(res.violation, ok),
-            max_violation_converged=class_max(res.violation, conv),
-            max_violation_unconverged=class_max(res.violation, res.exitflag == 0),
-            mean_goal_distance=ok_mean(gdist),
-            reset_fraction=torch.sum(was_reset.to(torch.float32)) / B,
-            mean_iterations=torch.sum(res.iterations.to(torch.float32)) / B,
-            max_iterations=torch.amax(res.iterations),
-            rescue_overflow_fraction=overflow.to(torch.float32)
-            / torch.clamp(bad_total.to(torch.float32), min=1.0),
-            max_violation0_raw=torch.amax(torch.where(torch.isfinite(v0), v0, 0.0)),
+            converged_fraction=sums[1] / B,
+            mean_cost=sums[2] / n_ok,
+            max_violation=maxes[0],
+            max_violation_converged=maxes[1],
+            max_violation_unconverged=maxes[2],
+            mean_goal_distance=sums[3] / n_ok,
+            reset_fraction=sums[4] / B,
+            mean_iterations=sums[5] / B,
+            max_iterations=maxes[3].to(torch.int32),
+            rescue_overflow_fraction=sums[6] / torch.clamp(sums[7], min=1.0),
+            max_violation0_raw=maxes[4],
         )
 
     def run(self, scenario: FleetScenario, n_steps: int):
-        """Run the fleet for n_steps; returns (final state, last metrics)."""
-        scenario = self.to_device(scenario)
+        """Run the fleet for n_steps from a global scenario; returns (this
+        rank's final state, last metrics)."""
+        scenario = self.shard_scenario(scenario)
         state = self.init_state(scenario)
         metrics = None
         for _ in range(n_steps):

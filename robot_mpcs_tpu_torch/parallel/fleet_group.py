@@ -1,12 +1,13 @@
-"""Mixed-robot fleet on one device (port of ``robot_mpcs_tpu.parallel.fleet_group``).
+"""Mixed-robot fleet (port of ``robot_mpcs_tpu.parallel.fleet_group``).
 
 Robot classes have different static shapes (nx, nu, N, constraint sets), so
 each class keeps its own homogeneous ``FleetRunner`` (grouped batching), and
 the group steps them back to back on the same device. The per-class steps
 are queued without a host synchronisation in between beyond the solver's
 own loop conditions. Metrics come back per class plus a batch-size-weighted
-aggregate. The JAX package's mesh is a later slice: here every class runs
-on one device.
+aggregate. With a ``mesh`` every class runner shards its batch over the same
+ranks (each class batch divides by the mesh size), and each class's metrics
+are already global when ``_aggregate`` weighs them.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from robot_mpcs_tpu_torch.models.problem import MpcProblem
+from robot_mpcs_tpu_torch.parallel.mesh import Mesh
 from robot_mpcs_tpu_torch.parallel.fleet import (
     FleetMetrics,
     FleetRunner,
@@ -67,15 +69,17 @@ def _aggregate(per_class: Dict[str, FleetMetrics], sizes: Dict[str, int]) -> Fle
 class FleetGroup:
     """Steps several homogeneous FleetRunners as one mixed fleet.
 
-    ``problems``: ``{class_name: (MpcProblem, batch_size)}``. Every class runs
-    on ``device`` (the CUDA card unless ``"cpu"`` is given); ``runner_kwargs``
-    go to each class's ``FleetRunner``.
+    ``problems``: ``{class_name: (MpcProblem, batch_size)}``, global batch
+    sizes. Every class runs on ``device`` (the CUDA card unless ``"cpu"`` is
+    given), or sharded over ``mesh`` on its device; ``runner_kwargs`` go to
+    each class's ``FleetRunner``.
     """
 
     def __init__(
         self,
         problems: Dict[str, Tuple[MpcProblem, int]],
-        device="cuda",
+        device=None,
+        mesh: Optional[Mesh] = None,
         **runner_kwargs,
     ):
         if not problems:
@@ -83,7 +87,9 @@ class FleetGroup:
         self.runners: Dict[str, FleetRunner] = {}
         self.sizes: Dict[str, int] = {}
         for name, (problem, batch) in problems.items():
-            self.runners[name] = FleetRunner(problem, batch, device=device, **runner_kwargs)
+            self.runners[name] = FleetRunner(
+                problem, batch, device=device, mesh=mesh, **runner_kwargs
+            )
             self.sizes[name] = batch
         self.total_batch = sum(self.sizes.values())
 
@@ -91,6 +97,10 @@ class FleetGroup:
 
     def to_device(self, scenarios: Dict[str, FleetScenario]) -> Dict[str, FleetScenario]:
         return {k: self.runners[k].to_device(s) for k, s in scenarios.items()}
+
+    def shard_scenarios(self, scenarios: Dict[str, FleetScenario]) -> Dict[str, FleetScenario]:
+        """Each class's shard of its global scenario, on the device."""
+        return {k: self.runners[k].shard_scenario(s) for k, s in scenarios.items()}
 
     def init_states(self, scenarios: Dict[str, FleetScenario]) -> Dict[str, FleetState]:
         return {k: self.runners[k].init_state(scenarios[k]) for k in self.runners}
@@ -112,7 +122,7 @@ class FleetGroup:
     def run(
         self, scenarios: Dict[str, FleetScenario], n_steps: int
     ) -> Tuple[Dict[str, FleetState], GroupMetrics]:
-        scenarios = self.to_device(scenarios)
+        scenarios = self.shard_scenarios(scenarios)
         states = self.init_states(scenarios)
         metrics: Optional[GroupMetrics] = None
         for _ in range(n_steps):

@@ -1,5 +1,5 @@
 """Batched augmented-Lagrangian iLQR, batch-first (port of
-``robot_mpcs_tpu.solver.al_ilqr``, the two-family split path).
+``robot_mpcs_tpu.solver.al_ilqr``).
 
 This replaces the ForcesPro-generated interior-point C solver the reference
 drives (reference ``robotmpcs/models/mpcModel.py:74-129`` builds the problem,
@@ -14,11 +14,16 @@ drives (reference ``robotmpcs/models/mpcModel.py:74-129`` builds the problem,
 * **Inequalities + variable bounds** are handled by a PHR augmented
   Lagrangian: outer iterations update multipliers and a per-lane penalty;
   the inner iLQR minimizes the AL objective.
-* **Gauss-Newton expansion** in two row families (``MpcProblem.
-  split_callbacks``): FK-dependent rows with their analytic q-Jacobian, and
-  affine rows with a constant build-time Jacobian ``S_aff``. The JAX
-  package's scalarized ``custom_vmap`` assembly rule exists only because of
-  XLA; here the assembly is batched ``(B, N, ·)`` matrix products.
+* **Gauss-Newton expansion**, three paths as in the JAX package. The fast
+  one takes two row families (``MpcProblem.split_callbacks``): FK-dependent
+  rows with their analytic q-Jacobian, and affine rows with a constant
+  build-time Jacobian ``S_aff``. The JAX package's scalarized
+  ``custom_vmap`` assembly rule exists only because of XLA; here the
+  assembly is batched ``(B, N, ·)`` matrix products. For custom problems,
+  the stacked ``values``/``weights`` form gets its Jacobian from one
+  forward-mode pass (``torch.func.jacfwd`` under ``vmap``) over all stages,
+  and a ``cost``/``ineq``-only problem the exact gradient and Hessian of its
+  AL stage cost with a Gershgorin shift to positive definiteness.
 * **Batching and early exit**: every tensor carries the scenario batch
   first. Each JAX ``lax.while_loop`` (inner iLQR, outer AL, line search)
   becomes a Python ``while`` over a per-lane ``active`` mask that ends when
@@ -48,23 +53,36 @@ from robot_mpcs_tpu_torch.utils.devices import resolve_device
 
 
 class StageFunctions(NamedTuple):
-    """Batched per-stage problem callbacks in the (x, w, p) convention, where
-    ``w = [s, u]`` stacks slack + controls and every argument carries
-    leading ``(B, N)`` (or any) batch dimensions.
+    """Per-stage problem callbacks in the (x, w, p) convention, where
+    ``w = [s, u]`` stacks slack + controls. Every argument carries leading
+    batch dimensions (the solver passes ``(B, N)``; under ``torch.func``
+    none), so a callback indexes its last axis only, and the ``cost``,
+    ``ineq``, ``values`` and ``weights`` callbacks stay functional (no
+    in-place writes, no branches on values) for ``torch.func`` to
+    differentiate them.
 
-    ``q_rows(q, p, jac)`` returns the FK-dependent ``[res; bar; con]`` rows
-    and their q-Jacobian, ``aff_rows(v, p)`` the affine rows, and
-    ``weights_split(p)`` the four weight vectors (see
-    ``MpcProblem.split_callbacks``).
+    ``values``/``weights`` carry the structured (Gauss-Newton) form:
+    ``values(x, w, p)`` returns the stacked ``[residuals; barriers;
+    constraints]`` rows, ``weights(p)`` returns ``(w_res, w_bar)``; the stage
+    cost is ``sum(w_res * r^2) + sum(w_bar / b)`` and feasibility is
+    ``c >= 0``. With ``values=None`` the solver takes ``cost``/``ineq``
+    with exact Hessians (generic fallback). The split form ``q_rows(q, p,
+    jac)`` (FK-dependent rows and their q-Jacobian), ``aff_rows(v, p)``
+    (affine rows) and ``weights_split(p)`` (see
+    ``MpcProblem.split_callbacks``) is the fastest path and wins when set.
     """
 
     dynamics: Callable  # F(x, u) -> x_next
+    cost: Optional[Callable] = None  # cost(x, w, p) -> (...,) true objective
+    ineq: Optional[Callable] = None  # ineq(x, w, p) -> (..., n_con), feasible iff >= 0
+    values: Optional[Callable] = None  # (x, w, p) -> (..., n_res + n_bar + n_con)
+    weights: Optional[Callable] = None  # p -> (w_res, w_bar)
     #: (A, B) build-time constants, a batched fn(x, u) -> (A, Bu), or None
     #: (differentiate ``dynamics``)
-    dyn_jac: Union[None, Tuple, Callable]
-    q_rows: Callable
-    aff_rows: Callable
-    weights_split: Callable
+    dyn_jac: Union[None, Tuple, Callable] = None
+    q_rows: Optional[Callable] = None
+    aff_rows: Optional[Callable] = None
+    weights_split: Optional[Callable] = None
 
 
 def _al_penalty(c: torch.Tensor, lam: torch.Tensor, mu: torch.Tensor) -> torch.Tensor:
@@ -72,6 +90,20 @@ def _al_penalty(c: torch.Tensor, lam: torch.Tensor, mu: torch.Tensor) -> torch.T
     summed over the last axis; ``mu`` broadcasts against ``c[..., 0]``."""
     active = torch.clamp(lam - mu[..., None] * c, min=0.0)
     return (0.5 / mu) * torch.sum(active * active - lam * lam, dim=-1)
+
+
+def split_pinned_rows(q_seg, aff_seg, S_aff, nx: int, ns: int) -> np.ndarray:
+    """The constraint rows the split form pins at stage 0, ``(n_con,)``
+    bools in the split row order: a q-family row reaches z only through
+    q ⊆ x (pinned unless a slack column makes it live), an affine row is
+    pinned iff its constant Jacobian has no [s, u] column."""
+    qr, qb, qc = q_seg
+    ar, ab, ac = aff_seg
+    S_np = np.asarray(S_aff, np.float32)
+    return np.concatenate([
+        np.full((qc,), ns == 0),
+        np.abs(S_np[ar + ab :, nx:]).sum(axis=1) == 0.0,
+    ])
 
 
 def riccati_backward_scan(lx, lw, lxx, lxw, lww, A, Bm, reg):
@@ -91,13 +123,16 @@ def build_solver(
     nu: int,
     N: int,
     n_con: int,
+    n_res: int = 0,
+    n_bar: int = 0,
     w_lb,
     w_ub,
     cfg: Optional[SolverConfiguration] = None,
     n_q: int = 0,
-    q_seg: Tuple[int, int, int],
-    aff_seg: Tuple[int, int, int],
-    S_aff,
+    q_seg: Optional[Tuple[int, int, int]] = None,
+    aff_seg: Optional[Tuple[int, int, int]] = None,
+    S_aff=None,
+    pinned_rows=None,
     device="cuda",
 ):
     """Build ``solve(xinit, params, z0, lam0) -> SolveResult`` for a batch:
@@ -105,26 +140,23 @@ def build_solver(
     ``[s, u]`` tail seeds the controls), ``lam0 (B, N, n_con)`` (multiplier
     warm start). Tensors are moved to ``device`` (default: the CUDA card;
     pass ``"cpu"`` for the CPU).
+
+    The expansion path follows ``stage``: the split form when ``q_rows`` is
+    set (``q_seg``, ``aff_seg``, ``S_aff`` and ``n_q`` describe it), else the
+    stacked ``values`` (``n_res`` residual and ``n_bar`` barrier rows ahead of
+    the ``n_con`` constraint rows), else ``cost``/``ineq``.
+    ``pinned_rows`` (``(n_con,)`` bools) names the constraint rows masked at
+    stage 0; by default the split form derives them, the other forms pin none.
     """
     cfg = cfg or SolverConfiguration()
     dev = resolve_device(device)
     nw = ns + nu
     nv = nx + nw
     fdev = dict(dtype=torch.float32, device=dev)
-
-    qr, qb, qc = q_seg
-    ar, ab, ac = aff_seg
-    n_qrows = qr + qb + qc
-    if n_con != qc + ac:
-        raise ValueError(f"n_con {n_con} != q_con {qc} + aff_con {ac}")
-    S_np = np.asarray(S_aff, np.float32)
-    S = torch.as_tensor(S_np, **fdev)  # (n_arows, nv)
-    S_outer = torch.as_tensor(
-        np.einsum("ki,kj->kij", S_np, S_np).reshape(ar + ab + ac, nv * nv), **fdev
-    )
+    split = stage.q_rows is not None
+    structured = not split and stage.values is not None
     w_lb = torch.as_tensor(np.broadcast_to(np.asarray(w_lb, np.float32), (nw,)).copy(), **fdev)
     w_ub = torch.as_tensor(np.broadcast_to(np.asarray(w_ub, np.float32), (nw,)).copy(), **fdev)
-    upper = torch.ones((nv, nv), dtype=torch.bool, device=dev).triu()
 
     # ---------------- pinned stage-0 constraint rows ------------------------
     # x[0] = xinit is DATA, not a decision variable, so a stage-0 constraint
@@ -132,13 +164,20 @@ def build_solver(
     # folding it into the AL penalty would only ratchet the penalty to
     # penalty_max. Such rows are masked at stage 0 by an additive offset
     # (al_ilqr.py:406-437 of the JAX package).
-    pinned = np.zeros((n_con,), bool)
-    if ns == 0:
-        # q-family con rows reach z only through q ⊆ x (a slack shift makes
-        # them live again)
-        pinned[:qc] = True
-    # affine con rows: pinned iff their constant Jacobian has no [s, u] column
-    pinned[qc:] = np.abs(S_np[ar + ab :, nx:]).sum(axis=1) == 0.0
+    if split:
+        qr, qb, qc = q_seg
+        ar, ab, ac = aff_seg
+        if n_con != qc + ac:
+            raise ValueError(f"n_con {n_con} != q_con {qc} + aff_con {ac}")
+        S_np = np.asarray(S_aff, np.float32)
+    if pinned_rows is not None:
+        pinned = np.asarray(pinned_rows, bool)
+        if pinned.shape != (n_con,):
+            raise ValueError(f"pinned_rows shape {pinned.shape} != ({n_con},)")
+    elif split:
+        pinned = split_pinned_rows(q_seg, aff_seg, S_aff, nx, ns)
+    else:
+        pinned = np.zeros((n_con,), bool)
     C_OFF = torch.zeros((N, n_con), **fdev)
     if pinned.any():
         C_OFF[0, torch.as_tensor(np.where(pinned)[0], device=dev)] = 1e6
@@ -200,38 +239,9 @@ def build_solver(
             return riccati_backward_batched(lx, lw, lxx, lxw, lww, A, Bm, reg, N=N, nx=nx, nw=nw)
 
     # ---------------- stage-level pieces (leading dims (B, N)) --------------
-
-    def eval_families(X, W, P, jac: bool):
-        """(vq, Jq | None, va): q-family rows (+ q-Jacobian), affine rows."""
-        vq, Jq = stage.q_rows(X[..., :n_q], P, jac)
-        va = stage.aff_rows(torch.cat([X, W], -1), P)
-        if ns and qc:
-            # slack-shift the q-family module constraint rows (the affine
-            # family shifts its own rows inside aff_rows)
-            vq = torch.cat([vq[..., : qr + qb], vq[..., qr + qb :] + W[..., :1]], -1)
-        return vq, Jq, va
-
-    def family_cost(vq, va, P):
-        """(true stage cost (B, N), stacked constraint rows [con_q; con_aff])."""
-        wrq, wbq, wra, wba = stage.weights_split(P)
-        total = torch.sum(wrq * vq[..., :qr] ** 2, -1) + torch.sum(wra * va[..., :ar] ** 2, -1)
-        total = total + torch.sum(wbq / torch.clamp(vq[..., qr : qr + qb], min=BARRIER_EPS), -1)
-        total = total + torch.sum(wba / torch.clamp(va[..., ar : ar + ab], min=BARRIER_EPS), -1)
-        return total, torch.cat([vq[..., qr + qb :], va[..., ar + ab :]], -1)
-
-    def true_cost(X, W, P):
-        vq, _, va = eval_families(X, W, P, jac=False)
-        return family_cost(vq, va, P)[0]
-
-    def stage_ineq(X, W, P):
-        vq, _, va = eval_families(X, W, P, jac=False)
-        return torch.cat([vq[..., qr + qb :], va[..., ar + ab :]], -1)
-
-    def al_stage_cost(X, W, P, lam, mu):
-        """AL merit per stage, (B, N); ``mu`` is the per-lane penalty (B,)."""
-        vq, _, va = eval_families(X, W, P, jac=False)
-        cost, c = family_cost(vq, va, P)
-        return cost + _al_penalty(c + C_OFF, lam, mu[:, None])
+    # Each path defines true_cost (B, N), stage_ineq (B, N, n_con),
+    # al_stage_cost (B, N) and stage_expansion_blocks, the Riccati blocks
+    # (lx, lw, lxx, lxw, lww) of the AL model, each contiguous (B, N, ...).
 
     def _coefs(r, wr, b, wb, c, lam_seg, mu3):
         """Per-row (gradient, curvature) scalars of the AL model: residual
@@ -253,33 +263,7 @@ def build_solver(
         )
         return g, h
 
-    def stage_expansion_blocks(X, W, P, lam, mu):
-        """Riccati blocks (lx, lw, lxx, lxw, lww) of the Gauss-Newton AL
-        model at every stage, each contiguous ``(B, N, ...)``."""
-        vq, Jq, va = eval_families(X, W, P, jac=True)
-        cq = vq[..., qr + qb :] + C_OFF[:, :qc]
-        ca = va[..., ar + ab :] + C_OFF[:, qc:]
-        wrq, wbq, wra, wba = stage.weights_split(P)
-        mu3 = mu[:, None, None]
-        ga, ha = _coefs(va[..., :ar], wra, va[..., ar : ar + ab], wba, ca, lam[..., qc:], mu3)
-        g = ga @ S  # (B, N, nv)
-        H = (ha @ S_outer).reshape(ha.shape[:-1] + (nv, nv))
-        if n_qrows:
-            gq, hq = _coefs(
-                vq[..., :qr], wrq, vq[..., qr : qr + qb], wbq, cq, lam[..., :qc], mu3
-            )
-            g[..., :n_q] += (gq.unsqueeze(-2) @ Jq).squeeze(-2)
-            H[..., :n_q, :n_q] += (Jq * hq[..., None]).transpose(-1, -2) @ Jq
-            if ns and qc:
-                s_col = nx
-                gq_c, hq_c, Jq_c = gq[..., qr + qb :], hq[..., qr + qb :], Jq[..., qr + qb :, :]
-                cross = (hq_c.unsqueeze(-2) @ Jq_c).squeeze(-2)
-                g[..., s_col] += torch.sum(gq_c, -1)
-                H[..., :n_q, s_col] += cross
-                H[..., s_col, :n_q] += cross
-                H[..., s_col, s_col] += torch.sum(hq_c, -1)
-        # mirror the upper triangle (the JAX assembly computes j >= i only)
-        H = torch.where(upper, H, H.transpose(-1, -2))
+    def blocks(g, H):
         return (
             g[..., :nx].contiguous(),
             g[..., nx:].contiguous(),
@@ -287,6 +271,161 @@ def build_solver(
             H[..., :nx, nx:].contiguous(),
             H[..., nx:, nx:].contiguous(),
         )
+
+    if split:
+        n_qrows = qr + qb + qc
+        S = torch.as_tensor(S_np, **fdev)  # (n_arows, nv)
+        S_outer = torch.as_tensor(
+            np.einsum("ki,kj->kij", S_np, S_np).reshape(ar + ab + ac, nv * nv), **fdev
+        )
+        upper = torch.ones((nv, nv), dtype=torch.bool, device=dev).triu()
+
+        def eval_families(X, W, P, jac: bool):
+            """(vq, Jq | None, va): q-family rows (+ q-Jacobian), affine rows."""
+            vq, Jq = stage.q_rows(X[..., :n_q], P, jac)
+            va = stage.aff_rows(torch.cat([X, W], -1), P)
+            if ns and qc:
+                # slack-shift the q-family module constraint rows (the affine
+                # family shifts its own rows inside aff_rows)
+                vq = torch.cat([vq[..., : qr + qb], vq[..., qr + qb :] + W[..., :1]], -1)
+            return vq, Jq, va
+
+        def family_cost(vq, va, P):
+            """(true stage cost (B, N), stacked constraint rows [con_q; con_aff])."""
+            wrq, wbq, wra, wba = stage.weights_split(P)
+            total = torch.sum(wrq * vq[..., :qr] ** 2, -1) + torch.sum(wra * va[..., :ar] ** 2, -1)
+            total = total + torch.sum(wbq / torch.clamp(vq[..., qr : qr + qb], min=BARRIER_EPS), -1)
+            total = total + torch.sum(wba / torch.clamp(va[..., ar : ar + ab], min=BARRIER_EPS), -1)
+            return total, torch.cat([vq[..., qr + qb :], va[..., ar + ab :]], -1)
+
+        def true_cost(X, W, P):
+            vq, _, va = eval_families(X, W, P, jac=False)
+            return family_cost(vq, va, P)[0]
+
+        def stage_ineq(X, W, P):
+            vq, _, va = eval_families(X, W, P, jac=False)
+            return torch.cat([vq[..., qr + qb :], va[..., ar + ab :]], -1)
+
+        def al_stage_cost(X, W, P, lam, mu):
+            """AL merit per stage, (B, N); ``mu`` is the per-lane penalty (B,)."""
+            vq, _, va = eval_families(X, W, P, jac=False)
+            cost, c = family_cost(vq, va, P)
+            return cost + _al_penalty(c + C_OFF, lam, mu[:, None])
+
+        def stage_expansion_blocks(X, W, P, lam, mu):
+            """Riccati blocks (lx, lw, lxx, lxw, lww) of the Gauss-Newton AL
+            model at every stage, each contiguous ``(B, N, ...)``."""
+            vq, Jq, va = eval_families(X, W, P, jac=True)
+            cq = vq[..., qr + qb :] + C_OFF[:, :qc]
+            ca = va[..., ar + ab :] + C_OFF[:, qc:]
+            wrq, wbq, wra, wba = stage.weights_split(P)
+            mu3 = mu[:, None, None]
+            ga, ha = _coefs(va[..., :ar], wra, va[..., ar : ar + ab], wba, ca, lam[..., qc:], mu3)
+            g = ga @ S  # (B, N, nv)
+            H = (ha @ S_outer).reshape(ha.shape[:-1] + (nv, nv))
+            if n_qrows:
+                gq, hq = _coefs(
+                    vq[..., :qr], wrq, vq[..., qr : qr + qb], wbq, cq, lam[..., :qc], mu3
+                )
+                g[..., :n_q] += (gq.unsqueeze(-2) @ Jq).squeeze(-2)
+                H[..., :n_q, :n_q] += (Jq * hq[..., None]).transpose(-1, -2) @ Jq
+                if ns and qc:
+                    s_col = nx
+                    gq_c, hq_c, Jq_c = gq[..., qr + qb :], hq[..., qr + qb :], Jq[..., qr + qb :, :]
+                    cross = (hq_c.unsqueeze(-2) @ Jq_c).squeeze(-2)
+                    g[..., s_col] += torch.sum(gq_c, -1)
+                    H[..., :n_q, s_col] += cross
+                    H[..., s_col, :n_q] += cross
+                    H[..., s_col, s_col] += torch.sum(hq_c, -1)
+            # mirror the upper triangle (the JAX assembly computes j >= i only)
+            H = torch.where(upper, H, H.transpose(-1, -2))
+            return blocks(g, H)
+
+    elif structured:
+
+        def split_vals(vals):
+            return vals[..., :n_res], vals[..., n_res : n_res + n_bar], vals[..., n_res + n_bar :]
+
+        def cost_from_vals(vals, P):
+            r, b, _ = split_vals(vals)
+            w_res, w_bar = stage.weights(P)
+            total = torch.sum(w_res * r * r, -1)
+            if n_bar:
+                total = total + torch.sum(w_bar / torch.clamp(b, min=BARRIER_EPS), -1)
+            return total
+
+        def true_cost(X, W, P):
+            return cost_from_vals(stage.values(X, W, P), P)
+
+        def stage_ineq(X, W, P):
+            return split_vals(stage.values(X, W, P))[2]
+
+        def al_stage_cost(X, W, P, lam, mu):
+            vals = stage.values(X, W, P)
+            c = split_vals(vals)[2] + C_OFF
+            return cost_from_vals(vals, P) + _al_penalty(c, lam, mu[:, None])
+
+        def _vals(v, p):
+            out = stage.values(v[:nx], v[nx:], p)
+            return out, out
+
+        # one forward-mode pass over every (lane, stage): (J, values)
+        vals_jac = torch.func.vmap(torch.func.jacfwd(_vals, has_aux=True))
+
+        def stage_expansion_blocks(X, W, P, lam, mu):
+            """Gauss-Newton model from the rows' Jacobian (al_ilqr.py:337-372):
+            the same per-row coefficients as the split path, one dense J."""
+            lead = X.shape[:-1]
+            J, vals = vals_jac(torch.cat([X, W], -1).reshape(-1, nv), P.reshape(-1, P.shape[-1]))
+            # forward mode may carry a python-scalar term's tangent in f64
+            J = J.reshape(lead + J.shape[-2:]).to(torch.float32)
+            r, b, c = split_vals(vals.reshape(lead + vals.shape[-1:]))
+            w_res, w_bar = stage.weights(P)
+            g_row, h_row = _coefs(r, w_res, b, w_bar, c + C_OFF, lam, mu[:, None, None])
+            g = (g_row.unsqueeze(-2) @ J).squeeze(-2)
+            H = (J * h_row[..., None]).transpose(-1, -2) @ J
+            return blocks(g, H)
+
+    else:
+
+        def true_cost(X, W, P):
+            return stage.cost(X, W, P)
+
+        def stage_ineq(X, W, P):
+            return stage.ineq(X, W, P)
+
+        def al_stage_cost(X, W, P, lam, mu):
+            c = stage.ineq(X, W, P) + C_OFF
+            return stage.cost(X, W, P) + _al_penalty(c, lam, mu[:, None])
+
+        def _al_one(v, p, lam_k, mu_k, off_k):
+            """AL cost of one stage, for torch.func (no batch dimensions)."""
+            c = stage.ineq(v[:nx], v[nx:], p) + off_k
+            return stage.cost(v[:nx], v[nx:], p) + _al_penalty(c, lam_k, mu_k)
+
+        al_grad = torch.func.vmap(torch.func.grad(_al_one))
+        al_hess = torch.func.vmap(torch.func.hessian(_al_one))
+        eye = torch.eye(nv, **fdev)
+
+        def stage_expansion_blocks(X, W, P, lam, mu):
+            """Exact AL gradient and Hessian, symmetrised and shifted to
+            positive definiteness by the Gershgorin bound (al_ilqr.py:374-384)."""
+            lead = X.shape[:-1]
+            M = X[..., 0].numel()
+            args = (
+                torch.cat([X, W], -1).reshape(M, nv),
+                P.reshape(M, P.shape[-1]),
+                lam.reshape(M, n_con),
+                mu[:, None].expand(lead).reshape(M),
+                C_OFF.expand(lead + (n_con,)).reshape(M, n_con),
+            )
+            g = al_grad(*args).reshape(lead + (nv,))
+            H = al_hess(*args).reshape(lead + (nv, nv)).to(torch.float32)
+            H = 0.5 * (H + H.transpose(-1, -2))
+            diag = torch.diagonal(H, dim1=-2, dim2=-1)
+            radius = torch.sum(torch.abs(H), -1) - torch.abs(diag)
+            shift = torch.clamp(1e-6 - torch.amin(diag - radius, -1), min=0.0)
+            return blocks(g, H + shift[..., None, None] * eye)
 
     def rollout(xinit, W):
         """Open-loop rollout: X[:, 0] = xinit, X[:, k+1] = F(X[:, k], U[:, k])."""
@@ -493,5 +632,12 @@ def build_solver(
         )
 
     # exposed for white-box tests, as the JAX package's ``_internals``
-    solve._internals = {"all_dyn_jacobians": all_dyn_jacobians}
+    solve._internals = {
+        "all_dyn_jacobians": all_dyn_jacobians,
+        "stage_expansion_blocks": stage_expansion_blocks,
+        "al_stage_cost": al_stage_cost,
+        "true_cost": true_cost,
+        "stage_ineq": stage_ineq,
+        "C_OFF": C_OFF,
+    }
     return solve

@@ -9,7 +9,10 @@ job state — losing it on preemption forfeits the warm starts and every
 scenario's progress. The state is copied to the host once per field
 (``interop.state_to_numpy``) and written through a temporary file,
 ``fsync`` and ``os.replace``, so a crash mid-write never leaves a torn
-checkpoint. Single device: the port has no mesh yet.
+checkpoint. With a ``mesh`` (``parallel/mesh.py``) the ranks' shards are
+gathered and rank 0 writes the global batch; loading slices the global
+batch for each rank, so a checkpoint written at one world size resumes at
+any other that divides its batch (the JAX package's "16 chips -> 8").
 """
 
 from __future__ import annotations
@@ -27,17 +30,32 @@ import numpy as np
 _FORMAT_VERSION = 2
 
 
-def save_fleet_state(path: str, state, extra: Optional[dict] = None) -> None:
+def save_fleet_state(path: str, state, extra: Optional[dict] = None, mesh=None) -> None:
     """Write ``state`` (a ``FleetState`` on any device) to ``path`` (.npz)
     atomically.
 
     ``extra`` is an optional JSON-serializable dict (e.g. scenario seed,
     config digest) stored alongside the arrays for provenance checks at
-    restore time.
+    restore time. With a ``mesh`` that has a process group, ``state`` is
+    this rank's shard: every rank must call, rank 0 writes the gathered
+    batch, and all ranks return after the file is in place.
     """
     from robot_mpcs_tpu_torch.interop import state_to_numpy
 
     host = state_to_numpy(state)
+    if mesh is not None and mesh.group is not None:
+        from robot_mpcs_tpu_torch.parallel.distributed import barrier
+        from robot_mpcs_tpu_torch.parallel.mesh import gather_batch
+
+        host = gather_batch(mesh, host)
+        if mesh.rank == 0:
+            _write(path, host, extra)
+        barrier(mesh.device, mesh.group)
+    else:
+        _write(path, host, extra)
+
+
+def _write(path: str, host: dict, extra: Optional[dict]) -> None:
     x, z_warm, lam = host["x"], host["z_warm"], host["lam"]
     meta = {
         "version": _FORMAT_VERSION,
@@ -78,17 +96,22 @@ def save_fleet_state(path: str, state, extra: Optional[dict] = None) -> None:
         raise
 
 
-def load_fleet_state(path: str, problem=None, batch_size=None, device="cuda"):
-    """Load a fleet checkpoint onto ``device``; returns ``(state, extra)``.
+def load_fleet_state(path: str, mesh=None, problem=None, batch_size=None, device=None):
+    """Load a fleet checkpoint onto ``device`` (the card by default);
+    returns ``(state, extra)``.
 
-    With ``problem`` (an :class:`MpcProblem`) and/or ``batch_size`` given,
-    the checkpoint's recorded shape provenance is validated against the
-    target problem and a clear ``ValueError`` is raised on mismatch.
+    With ``mesh`` given, every rank reads the file and keeps its own slice
+    of the batch, on the mesh's device (the checkpoint's world size is
+    irrelevant; only ``batch % mesh size == 0`` must hold).
+
+    With ``problem`` (an :class:`MpcProblem`) and/or ``batch_size`` (global)
+    given, the checkpoint's recorded shape provenance is validated against
+    the target problem and a clear ``ValueError`` is raised on mismatch.
     """
     from robot_mpcs_tpu_torch.interop import state_from_numpy
     from robot_mpcs_tpu_torch.utils.devices import resolve_device
 
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device or "cuda")
     with np.load(path) as data:
         meta = json.loads(bytes(data["meta"]).decode())
         if meta.get("version") not in (1, _FORMAT_VERSION):
@@ -123,4 +146,7 @@ def load_fleet_state(path: str, problem=None, batch_size=None, device="cuda"):
                 "fleet checkpoint shape mismatch (checkpoint vs target): "
                 + ", ".join(f"{k}: {a} vs {b}" for k, (a, b) in bad.items())
             )
+    if mesh is not None:
+        rows = mesh.local_slice(arrays["x"].shape[0])
+        arrays = {k: v if v.ndim == 0 else v[rows] for k, v in arrays.items()}
     return state_from_numpy(arrays, device=dev), meta["extra"]

@@ -107,7 +107,7 @@ def test_solve_matches_jax(problems, jax_run, jax_solve, start):
         lam0 = np.zeros((B, dims.N, tp.n_con), np.float32)
     res_j = jax_solve(xinit, params, z0, lam0)
     res_t = tp.build_solver(device="cpu")(
-        *interop.solver_inputs_from_numpy(xinit, params, z0, lam0)
+        *interop.solver_inputs_from_numpy(xinit, params, z0, lam0, device="cpu")
     )
     flag_j, flag_t = np.asarray(res_j.exitflag), res_t.exitflag.numpy()
     assert int(np.sum(flag_j == flag_t)) >= B - 2, (flag_j, flag_t)
@@ -125,7 +125,7 @@ def test_solve_matches_jax(problems, jax_run, jax_solve, start):
 def test_fleet_matches_jax(problems, jax_run):
     tp, _ = problems
     runner = FleetRunner(tp, B, device="cpu", **RUNNER_KW)
-    scen = interop.scenario_from_numpy(jax_run["xinit"], jax_run["params"])
+    scen = interop.scenario_from_numpy(jax_run["xinit"], jax_run["params"], device="cpu")
     state = runner.init_state(scen)
     for i in range(STEPS):
         state, m = runner.step(state, scen)

@@ -93,7 +93,7 @@ def _both_solves(problems, jax_solve, xinit, params, z0, lam0):
     tp, _ = problems
     res_j = jax_solve(xinit, params, z0, lam0)
     res_t = tp.build_solver(device="cpu")(
-        *interop.solver_inputs_from_numpy(xinit, params, z0, lam0)
+        *interop.solver_inputs_from_numpy(xinit, params, z0, lam0, device="cpu")
     )
     flag_j, flag_t = np.asarray(res_j.exitflag), res_t.exitflag.numpy()
     assert int(np.sum(flag_j == flag_t)) >= B - 2, (flag_j, flag_t)
@@ -141,7 +141,7 @@ def test_cold_solve_matches_jax(problems, jax_run, jax_solve):
 def test_fleet_matches_jax(problems, jax_run):
     tp, _ = problems
     runner = FleetRunner(tp, B, device="cpu", **RUNNER_KW)
-    scen = interop.scenario_from_numpy(jax_run["xinit"], jax_run["params"])
+    scen = interop.scenario_from_numpy(jax_run["xinit"], jax_run["params"], device="cpu")
     state = runner.init_state(scen)
     for i in range(STEPS):
         state, m = runner.step(state, scen)
@@ -164,7 +164,7 @@ def test_fault_injection_brakes_and_resets(problems, jax_run):
     params = jax_run["params"].copy()
     params[3] = np.nan
     runner = FleetRunner(tp, B, device="cpu", **RUNNER_KW)
-    scen = interop.scenario_from_numpy(jax_run["xinit"], params)
+    scen = interop.scenario_from_numpy(jax_run["xinit"], params, device="cpu")
     state = runner.init_state(scen)
     new, m = runner.step(state, scen)
     assert float(m.reset_fraction) == pytest.approx(1 / B)
@@ -177,13 +177,13 @@ def test_fault_injection_brakes_and_resets(problems, jax_run):
 def test_interop_round_trip_names_dtypes(jax_run):
     s = dict(jax_run["states"][0])
     s64 = {k: v.astype(np.float64) for k, v in s.items()}  # numpy's default float
-    state = interop.state_from_numpy(s64)
+    state = interop.state_from_numpy(s64, device="cpu")
     assert state.x.dtype == state.z_warm.dtype == state.lam.dtype == torch.float32
     assert state.step.dtype == state.stall.dtype == state.no_improve.dtype == torch.int32
     back = interop.state_to_numpy(state)
     for k, v in s.items():
         np.testing.assert_array_equal(back[k], v)
-    scen = interop.scenario_from_numpy(jax_run["xinit"].astype(np.float64), jax_run["params"])
+    scen = interop.scenario_from_numpy(jax_run["xinit"].astype(np.float64), jax_run["params"], device="cpu")
     assert scen.xinit.dtype == scen.params.dtype == torch.float32
     back = interop.scenario_to_numpy(scen)
     np.testing.assert_array_equal(back["xinit"], jax_run["xinit"])
@@ -211,7 +211,7 @@ def test_scan_backend_and_boxer_solve_on_cpu(problems, jax_run, case):
         z0 = np.zeros((B, dims.N, dims.nz), np.float32)
         z0[:, :, : dims.nx] = xinit[:, None, :]
         inputs = (xinit, scen.params.numpy(), z0, np.zeros((B, dims.N, tp.n_con), np.float32))
-    res = solve(*interop.solver_inputs_from_numpy(*inputs))
+    res = solve(*interop.solver_inputs_from_numpy(*inputs, device="cpu"))
     assert res.z.shape == (B, dims.N, dims.nz) and torch.isfinite(res.z).all()
     assert torch.all(res.exitflag >= 0) and torch.any(res.exitflag == 1)
     assert torch.all(res.violation[res.exitflag == 1] <= 1e-4)

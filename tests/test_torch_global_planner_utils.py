@@ -175,7 +175,7 @@ def test_resume_from_jax_checkpoint_matches_jax_step(point_problems, tmp_path):
     restored, extra = load_fleet_state(path, problem=tp, batch_size=B, device="cpu")
     assert extra == {"writer": "jax"} and int(restored.step) == 1
     ours = FleetRunner(tp, B, device="cpu", **RUNNER_KW)
-    scen = interop.scenario_from_numpy(np.asarray(jscen.xinit), np.asarray(jscen.params))
+    scen = interop.scenario_from_numpy(np.asarray(jscen.xinit), np.asarray(jscen.params), device="cpu")
     new, m = ours.step(restored, scen)
     m = {k: float(v) for k, v in m._asdict().items()}
     assert int(new.step) == 2

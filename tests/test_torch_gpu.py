@@ -333,3 +333,133 @@ def test_perception_and_global_planner_on_card():
     assert np.array_equal(enlarge_obstacles(occ, 2, 0.29), enlarge_obstacles(occ, 2, 0.29, device="cpu"))
     assert GlobalPlanner([10, 10, 1], [-5.0, -5.0, 0.0], [5.0, 5.0, 1.0]).device.type == "cuda"
     chip_smoke.global_planner_phase()
+
+
+def _fleet_problem(name):
+    from robot_mpcs_tpu_torch.config import Setup, panda_setup, point_robot_setup
+    from robot_mpcs_tpu_torch.models.problem import MpcProblem
+
+    return MpcProblem(Setup.from_dict({"panda": panda_setup, "pointRobot": point_robot_setup}[name]()))
+
+
+@pytest.mark.gpu
+def test_nccl_world1_step_equals_the_plain_step_on_card():
+    """With a world-1 NCCL group the fleet step runs its two metric
+    all-reduces and is otherwise the plain step: states equal to 1e-6,
+    metrics and exit flags equal (chip_smoke.py's distributed phase at
+    pointRobot B=256)."""
+    _need_card()
+    from robot_mpcs_tpu_torch.parallel import distributed
+    from robot_mpcs_tpu_torch.parallel.fleet import FleetRunner, random_fleet_scenario
+    from robot_mpcs_tpu_torch.parallel.mesh import make_mesh
+
+    problem = _fleet_problem("pointRobot")
+    scenario = random_fleet_scenario(problem, 256, seed=0, **chip_smoke.GROUP_SAMPLERS["pointRobot"])
+    assert distributed.initialize(f"127.0.0.1:{chip_smoke.free_port()}", 1, 0, backend="nccl",
+                                  device="cuda:0")
+    try:
+        runner = FleetRunner(problem, 256, mesh=make_mesh(), kick_scale=0.0)
+        assert runner.mesh.group is not None and runner.device == torch.device("cuda", 0)
+        s1, m1, _, f1 = chip_smoke.run_steps(torch, runner, runner.shard_scenario(scenario), 2)
+    finally:
+        distributed.shutdown()
+    plain = FleetRunner(problem, 256, device="cuda", kick_scale=0.0)
+    s0, m0, _, f0 = chip_smoke.run_steps(torch, plain, plain.to_device(scenario), 2)
+    diff = chip_smoke.state_diff(torch, s1, s0)
+    assert diff is not None and diff <= 1e-6
+    assert m1 == m0 and torch.equal(f1, f0)
+
+
+@pytest.mark.gpu
+def test_two_gloo_ranks_share_one_card(tmp_path):
+    """tests/torch_distributed_worker.py with both ranks on cuda:0: metrics
+    identical on both ranks, each shard equal to a world-1 runner on its
+    half on the card (flags equal, states within 1e-6)."""
+    _need_card()
+    import os
+    import subprocess
+    import sys
+
+    import numpy as np
+
+    from robot_mpcs_tpu_torch import interop
+    from robot_mpcs_tpu_torch.parallel.fleet import FleetRunner, FleetScenario, random_fleet_scenario
+    from robot_mpcs_tpu_torch.utils.checkpoint import save_fleet_state
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    import torch_distributed_worker as worker
+
+    problem = _fleet_problem("pointRobot")
+    scenario = random_fleet_scenario(problem, worker.B, seed=worker.SEED, **worker.SAMPLER)
+    w1, _ = FleetRunner(problem, worker.B, device="cuda", **worker.RUNNER_KW).run(scenario, 1)
+    save_fleet_state(str(tmp_path / "w1.npz"), w1, extra={"world": 1})
+    port = chip_smoke.free_port()
+    procs = [
+        subprocess.Popen(
+            [sys.executable, os.path.join(here, "torch_distributed_worker.py"), str(tmp_path), "cuda:0"],
+            env=dict(os.environ, ROBOT_MPCS_COORDINATOR=f"127.0.0.1:{port}",
+                     ROBOT_MPCS_NUM_PROCESSES="2", ROBOT_MPCS_PROCESS_ID=str(r),
+                     PYTHONPATH=os.path.dirname(here)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for r in range(2)
+    ]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert all(p.returncode == 0 for p in procs), [log[-3000:] for log in logs]
+    ranks = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(2)]
+    metric_keys = [k for k in ranks[0] if k.startswith("m")]
+    assert metric_keys and all(float(ranks[0][k]) == float(ranks[1][k]) for k in metric_keys)
+    half = worker.B // 2
+    for r in range(2):
+        rows = slice(r * half, (r + 1) * half)
+        runner = FleetRunner(problem, half, device="cuda", **worker.RUNNER_KW)
+        state, _, _, flags = chip_smoke.run_steps(
+            torch, runner, runner.to_device(FleetScenario(scenario.xinit[rows], scenario.params[rows])),
+            worker.STEPS)
+        last = {k[len(f"s{worker.STEPS - 1}_"):]: v for k, v in ranks[r].items()
+                if k.startswith(f"s{worker.STEPS - 1}_")}
+        diff = chip_smoke.state_diff(torch, interop.state_from_numpy(last), state)
+        assert diff is not None and diff <= 1e-6, (r, diff)
+        assert np.array_equal(ranks[r]["flags"], flags.cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("generic", [False, True], ids=["values", "generic"])
+def test_reference_form_solves_on_card(generic):
+    """The values path against the split path, and the generic path against
+    itself on the CPU, at pointRobot B=64 (chip_smoke.hold_solves' bars);
+    both run through the structured kernel."""
+    _need_card()
+    from robot_mpcs_tpu_torch.parallel.fleet import random_fleet_scenario
+    from robot_mpcs_tpu_torch.solver.al_ilqr import build_solver
+
+    problem = _fleet_problem("pointRobot")
+    B = 64
+    sc = random_fleet_scenario(problem, B, seed=0, **chip_smoke.GROUP_SAMPLERS["pointRobot"])
+    d = problem.dims
+    z0 = torch.zeros((B, d.N, d.nz))
+    z0[:, :, : d.nx] = sc.xinit[:, None, :]
+    args = (sc.xinit, sc.params, z0, torch.zeros((B, d.N, problem.n_con)))
+    stage, w_lb, w_ub = problem.solver_callbacks()
+    if generic:
+        stage = stage._replace(values=None, weights=None)
+
+    def solver(device):
+        return build_solver(stage, nx=d.nx, ns=d.ns, nu=d.nu, N=d.N, n_con=problem.n_con,
+                            n_res=problem.n_res, n_bar=problem.n_bar, w_lb=w_lb, w_ub=w_ub,
+                            cfg=problem.setup.solver,
+                            pinned_rows=problem.reference_constraint_rows()[1], device=device)
+
+    before = rp.riccati_backward_packed.launches
+    res = solver("cuda")(*args)
+    assert res.z.device.type == "cuda" and rp.riccati_backward_packed.launches > before
+    other = solver("cpu")(*args) if generic else problem.build_solver(device="cuda")(*args)
+    chip_smoke.hold_solves(torch, "values vs split" if not generic else "generic card vs CPU",
+                           res, other)

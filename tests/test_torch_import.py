@@ -34,11 +34,12 @@ assert not any(m == "jax" or m.startswith(("jax.", "robot_mpcs_tpu.")) for m in 
 print(" ".join(names))
 """
 
-#: the modules of the planner slice, each of which must be among them
+#: the modules of the planner and sharded-fleet slices, each of which must be among them
 SLICE_MODULES = [
     "planner.mpc_planner", "planner.visualizer", "sim.kinematic_sim",
     "perception.free_space_decomposition", "global_planner.astar", "global_planner.grid_map",
     "global_planner.global_planner", "utils.checkpoint", "utils.profiling",
+    "parallel.distributed", "parallel.mesh",
 ]
 
 

@@ -85,7 +85,7 @@ def test_cold_solve_matches_jax(case):
 
     res_j = jax.jit(jax.vmap(jp.build_solver()))(xinit, params, z0, lam0)
     res_t = tp.build_solver(device="cpu")(
-        *interop.solver_inputs_from_numpy(xinit, params, z0, lam0)
+        *interop.solver_inputs_from_numpy(xinit, params, z0, lam0, device="cpu")
     )
     flag_j, flag_t = np.asarray(res_j.exitflag), res_t.exitflag.numpy()
     assert int(np.sum(flag_j == flag_t)) >= B - 1, (flag_j, flag_t)
