@@ -59,7 +59,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the card, each run read with its own launch counts (set to 0 before it):
    panda reaching a workspace goal (<= 150 solves, goal within 0.05 m),
    pointRobot around a sphere (<= 250 solves, goal within 0.15 m, clearance
-   > -0.05 m) and boxer through lidar free-space half-planes (40 solves);
+   > -0.05 m) and boxer through lidar free-space half-planes (10 solves;
+   the boxer example of phase 7 drives this path to its goal);
    every exit flag >= 0, every launch at B=1. Prints per-solve wall ms (p50 /
    p90 / max of solves 2..., the first apart), launches per solve
    (``planner_launches``) and one profiled solve each. The first 10 solves
@@ -71,12 +72,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
    observations equals 64 B=1 solves (flags, z under the same bars). The
    global planner's obstacle enlargement on the card equals the CPU's on a
    seeded 128 x 128 map, and A* finds a path on it.
-7. reference: 64 lanes solved on the card and on the CPU (plain Riccati
+7. examples: the port's five examples (``robot_mpcs_tpu_torch.examples``:
+   pointRobot, panda, boxer, boxer-global, supermarket) for their full
+   episodes within the JAX examples' step limits (500 / 500 / 300 / 400 /
+   500), through ``make_example`` and ``run`` as their command line runs
+   them, each read with its own launch counts: each reaches its goal and
+   launches its robot's kernel, only at B=1. Prints the step to the goal
+   beside the JAX example's on a CPU, the exit-flag counts, per-solve p50 /
+   p90, FSD ms per step (boxer), A* ms and waypoints (global, supermarket)
+   and launches per solve.
+8. deploy: ``make_solver`` exports the panda and boxer artifacts with their
+   kernel libraries; a fresh process with ``nvcc`` unreachable (not on
+   ``PATH``, ``CUDA_HOME`` nowhere, ``_build.nvcc`` raising) loads each
+   through ``MPCPlanner.from_solver_dir(..., device="cuda")``, builds nothing
+   and solves the example's first step as this process does (within
+   ``solve_bar``); an artifact with an altered ``export_meta.yaml`` is
+   declined with a warning and its kernel rebuilt from the sources (within
+   ``solve_bar`` again); each child's construction, first and second solve
+   are timed. ``MpcRosLogic`` on ``ros_bridge/config/boxer_mpc_config.yaml``
+   runs the 8 ticks of ``tests/test_ros_bridge.py`` on the card and ends
+   with a forward velocity above 0.05.
+9. reference: 64 lanes solved on the card and on the CPU (plain Riccati
    versions), for panda and for boxer: exit flags agree on >= 60 of 64,
    true costs of lanes both converge within 1e-4 relative, converged
    violation <= 1e-4.
-
-8. distributed: the panda fleet (B=4096, 2 steps, no kick) over a
+10. distributed: the panda fleet (B=4096, 2 steps, no kick) over a
    ``torch.distributed`` process group. NCCL at world 1 (``mesh=make_mesh()``,
    the two metric all-reduces run) must equal the plain step: states within
    1e-6, metrics and exit flags equal. Two ranks on the one card, each its
@@ -88,7 +108,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    is read from them). The W=2 checkpoint loaded at W=1 equals the
    concatenated shards. The kernels were built in phase 2, so the ranks
    load the cached libraries.
-9. reference form, at a warm panda iterate of the rescue shape (B=512,
+11. reference form, at a warm panda iterate of the rescue shape (B=512,
    the path phase's state): the stacked ``values`` expansion equals the
    split path's (every block within 1e-4 relative); the two solves' flags
    agree on >= 97% of lanes, converged lanes are feasible to 1e-4, true
@@ -675,8 +695,10 @@ def group_phase(torch, rp, rb):
 
 #: closed-loop solve caps of the planner runs, and the number of their first
 #: observations replayed on a CPU planner
-PLANNER_CAPS = {"panda": 150, "pointRobot": 250, "boxer": 40}
 PLANNER_REPLAY = 10
+#: boxer's planner run stops after its replayed solves: the boxer example
+#: (``examples_phase``) drives the same path to its goal
+PLANNER_CAPS = {"panda": 150, "pointRobot": 250, "boxer": PLANNER_REPLAY}
 SOLVE_BATCH = 64
 #: goal radius (m) of each planner run: panda's end effector
 #: (tests/test_planner_behavior.py), pointRobot's base (the verify recipe),
@@ -707,34 +729,6 @@ class Sphere:
 
     def dimension(self):
         return 3
-
-
-def simulate_lidar(pose, obstacles, n_rays=64, max_range=10.0):
-    """Raycast circles from the lidar mount (0.4 m ahead of the base), as
-    examples/boxer_example.py:24-51. Returns (n_hits, 3) world points."""
-    x, y, theta = pose
-    origin = np.array([x + 0.4 * np.cos(theta), y + 0.4 * np.sin(theta)])
-    angles = theta + np.linspace(0, 2 * np.pi, n_rays, endpoint=False)
-    dirs = np.stack([np.cos(angles), np.sin(angles)], axis=1)
-    points = []
-    for d in dirs:
-        best = max_range
-        for obst in obstacles:
-            c = np.asarray(obst.position()[:2]) - origin
-            proj = float(c @ d)
-            if proj <= 0:
-                continue
-            perp2 = float(c @ c) - proj * proj
-            r2 = obst.radius() ** 2
-            if perp2 > r2:
-                continue
-            t = proj - np.sqrt(r2 - perp2)
-            if 0 < t < best:
-                best = t
-        if best < max_range:
-            hit = origin + best * d
-            points.append([hit[0], hit[1], 0.0])
-    return np.array(points, np.float32).reshape(-1, 3)
 
 
 def planner_scenario(kind, device):
@@ -790,6 +784,8 @@ def boxer_halfplanes(sc, q, exitflag, output):
     """Per-stage half-planes from one lidar scan (examples/boxer_example.py
     :70-89): one decomposition around each stage of the previous plan when
     the last solve succeeded, else around the current pose."""
+    from robot_mpcs_tpu_torch.examples.boxer_example import simulate_lidar
+
     planner, fsd = sc["planner"], sc["fsd"]
     cloud = simulate_lidar(q, sc["obstacles"])
     lin = []
@@ -1367,11 +1363,293 @@ def reference_form_phase(torch, rp, problem, state, scen):
             "generic solve (pointRobot, B=64, cold)": generic_launches}
 
 
+#: the port's examples (``robot_mpcs_tpu_torch.examples``): module, the kernel
+#: their robot's solve launches, and the step at which the JAX package's
+#: example reached its goal on a CPU (the JAX package, CPU backend, full
+#: episodes: the yardstick, not a bar; the boxer loops are chaotic)
+EXAMPLES = {
+    "pointRobot": ("point_robot_example", "riccati_backward_packed", 66),
+    "panda": ("panda_example", "riccati_backward_packed", 24),
+    "boxer": ("boxer_example", "riccati_backward_batched", 44),
+    "boxer-global": ("boxer_example_global", "riccati_backward_batched", 71),
+    "supermarket": ("boxer_example_supermarket", "riccati_backward_batched", 45),
+}
+
+
+def examples_phase(torch, rp, rb):
+    """Each example of the port on the card for its full episode (its
+    module's ``STEPS``, the JAX example's limit), through ``make_example``
+    and ``run`` as its ``main`` runs them, each read with its own launch
+    counts: it must reach its goal, launch its robot's kernel, and launch
+    only at B=1. Returns each kernel's launches per example."""
+    import importlib
+
+    counters = {"riccati_backward_packed": rp.riccati_backward_packed,
+                "riccati_backward_batched": rb.riccati_backward_batched}
+    by_path = {name: {} for name in counters}
+    for name, (module, kernel, jax_step) in EXAMPLES.items():
+        mod = importlib.import_module(f"robot_mpcs_tpu_torch.examples.{module}")
+        t = time.perf_counter()
+        example = mod.make_example("cuda")
+        setup_s = time.perf_counter() - t
+        for fn in counters.values():
+            fn.launches = 0
+        with launches_by_batch(1) as tally:
+            reached = example.run(mod.STEPS)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        solves = len(example.solve_ms)
+        print(json.dumps({
+            "example": name, "device": "cuda", "reached": reached, "steps_to_goal": example.reached_at,
+            "jax_cpu_steps_to_goal": jax_step, "step_limit": mod.STEPS, "set_up_s": setup_s,
+            "flags": collections.Counter(example.exitflags), **percentiles(example.solve_ms),
+            "fsd_ms_per_step_p50": float(np.median(example.fsd_ms)) if hasattr(example, "fsd_ms") else None,
+            "astar_ms": getattr(example, "astar_ms", None),
+            "waypoints": len(example.path) if hasattr(example, "path") else None,
+            "launches_per_solve": {k: n / solves for k, n in launches.items() if n},
+        }), flush=True)
+        check(reached, f"example {name} did not reach its goal in {mod.STEPS} steps")
+        check(launches[kernel] > 0, f"example {name} never launched {kernel}")
+        check(all(B == 1 for _, B in tally), f"example {name} launched at B != 1: {dict(tally)}")
+        for k, n in launches.items():
+            if n:
+                by_path[k][f"example {name}"] = n
+    return by_path
+
+
+#: the artifacts ``deploy_phase`` writes with ``make_solver``, and each one's
+#: kernel library
+DEPLOY = {"panda": "riccati_packed", "boxer": "riccati_batched"}
+DEPLOY_TIMEOUT_S = 300
+
+
+def deploy_scene(kind, planner):
+    """The first solve of the ``kind`` example's scene (goal, obstacles,
+    limits; boxer's half-planes from one lidar scan) on ``planner``, from the
+    example's initial state. Returns (action, exit flag, inner iterations)."""
+    from robot_mpcs_tpu_torch.examples.boxer_example import simulate_lidar
+    from robot_mpcs_tpu_torch.perception.free_space_decomposition import free_space_halfplanes
+
+    nx = planner._dims.nx
+    x0 = np.zeros(nx, np.float32)
+    planner.setConstraintAvoidance()
+    if kind == "panda":
+        x0[:7] = [0.0, -0.8, 0.0, -1.5, 0.0, 1.0, 0.0]
+        lim = planner._problem.kin.joint_limits
+        planner.setGoalReaching([0.4, 0.3, 0.6])
+        planner.setRadialConstraints([Sphere([0.6, -0.3, 0.5], 0.2)], 0.1)
+        planner.setSelfCollisionAvoidanceConstraints(0.1)
+        planner.setJointLimits((lim[:, 0], lim[:, 1]))
+        planner.setInputLimits(([-10.0] * 7, [10.0] * 7))
+        obs = (x0[:7], x0[7:])
+    else:
+        import torch
+
+        cloud = torch.from_numpy(simulate_lidar(x0[:3], [Sphere([4.0, -1.5, 0.0], 1.0),
+                                                        Sphere([2.4, -0.7, 0.0], 0.3)]))
+        planes = free_space_halfplanes(cloud.expand(planner._N, -1, -1), torch.zeros(planner._N, 3),
+                                       number_constraints=planner._dims.n_obst, max_radius=5.0)
+        planner.setGoalReaching([7.2, -2.2])
+        planner.setLinearConstraints(planes.numpy(), 0.6)
+        planner.setJointLimits(([-10.0] * 3, [10.0] * 3))
+        planner.setInputLimits(([-10.0] * 2, [10.0] * 2))
+        obs = (x0[:3], x0[3:6], x0[6:])
+    planner.concretize()
+    action, _, flag = planner.computeAction(*obs)
+    return np.asarray(action), int(flag), int(planner._last_info.iterations)
+
+
+def deploy_child(torch, solver_dir, kind, out):
+    """A fresh process that loads the artifact ``solver_dir`` through
+    ``MPCPlanner.from_solver_dir(..., device="cuda")`` and solves ``deploy_scene``
+    once (``--deploy-child``). ``ROBOT_MPCS_DEPLOY_NVCC=none``: ``nvcc`` must
+    be unreachable (the caller strips it from ``PATH`` and points
+    ``CUDA_HOME`` nowhere; ``_build.nvcc`` raises here too). Writes the
+    solve, the kernel libraries loaded, any warnings, and the seconds of the
+    CUDA context's start, of the planner's construction, of its first solve
+    and of a second solve of the same state."""
+    import shutil
+    import warnings
+
+    t0 = time.perf_counter()
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from robot_mpcs_tpu_torch.models.problem import MpcProblem
+    from robot_mpcs_tpu_torch.ops import _build
+    from robot_mpcs_tpu_torch.planner import MPCPlanner
+
+    if os.environ.get("ROBOT_MPCS_DEPLOY_NVCC") == "none":
+        def unreachable():
+            raise SmokeFailure("nvcc was called")
+
+        check(shutil.which("nvcc") is None, "nvcc is on PATH")
+        _build.nvcc = unreachable
+    mpc = MpcProblem.from_solver_dir(solver_dir).setup.mpc
+    times = [time.perf_counter()]
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    times.append(time.perf_counter())
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        planner = MPCPlanner.from_solver_dir(
+            mpc.model_name, os.path.dirname(solver_dir), device="cuda", n=mpc.n,
+            time_step=mpc.time_step, time_horizon=mpc.time_horizon, slack=mpc.slack)
+        times.append(time.perf_counter())
+        action, flag, iterations = deploy_scene(kind, planner)
+        times.append(time.perf_counter())
+        planner.solve(planner._xinit.copy())
+        times.append(time.perf_counter())
+    cuda_init_s, construct_s, first_s, second_s = np.diff(times).tolist()
+    with open(out, "w") as f:
+        json.dump({"action": action.tolist(), "flag": flag, "iterations": iterations,
+                   "libraries": {k: lib._name for k, lib in _build._libs.items()},
+                   "warnings": [str(w.message) for w in caught], "cuda_init_s": cuda_init_s,
+                   "construct_s": construct_s,
+                   "first_solve_s": first_s, "second_solve_s": second_s,
+                   "process_s": time.perf_counter() - t0}, f)
+    return 0
+
+
+def run_deploy_child(solver_dir, kind, tmp, label, nvcc):
+    """Run ``deploy_child`` in a process of its own with an empty kernel
+    cache; ``nvcc=False`` strips it from the process. Returns its record
+    and the cache directory."""
+    cache = os.path.join(tmp, f"cache_{label}")
+    env = dict(os.environ, ROBOT_MPCS_TPU_CACHE=cache)
+    if not nvcc:
+        path = [d for d in env.get("PATH", "").split(os.pathsep)
+                if d and not os.path.exists(os.path.join(d, "nvcc"))]
+        env.update(PATH=os.pathsep.join(path), CUDA_HOME=os.path.join(tmp, "no_cuda_home"),
+                   ROBOT_MPCS_DEPLOY_NVCC="none")
+    out = os.path.join(tmp, f"{label}.json")
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--deploy-child", solver_dir, kind, out],
+                          env=env, capture_output=True, text=True, timeout=DEPLOY_TIMEOUT_S)
+    for line in (proc.stdout + proc.stderr).splitlines()[-10:]:
+        print(f"[{label}] {line}", flush=True)
+    check(proc.returncode == 0, f"deploy child {label} exited with {proc.returncode}")
+    with open(out) as f:
+        return json.load(f), cache
+
+
+def deploy_check(kind, tmp):
+    """Steps 1-3 of ``deploy_phase`` for the ``kind`` artifact, in ``tmp``;
+    returns its record."""
+    import shutil
+
+    import yaml
+
+    from robot_mpcs_tpu_torch.examples import make_solver
+    from robot_mpcs_tpu_torch.models.problem import MpcProblem
+    from robot_mpcs_tpu_torch.planner import MPCPlanner
+
+    stem = DEPLOY[kind]
+    root = os.path.dirname(os.path.abspath(__file__))
+    t = time.perf_counter()
+    path, first_s = make_solver.generate(os.path.join(root, "examples", "config", f"{kind}Mpc.yaml"),
+                                         os.path.join(tmp, "solvers"), "cuda")
+    make_s = time.perf_counter() - t
+    check(os.path.isfile(os.path.join(path, f"lib{stem}.so")), f"{kind}: no exported library")
+    problem = MpcProblem.from_solver_dir(path)
+    parent = deploy_scene(kind, MPCPlanner(problem, device="cuda"))
+    loaded, cache = run_deploy_child(path, kind, tmp, f"{kind}_export", nvcc=False)
+    check(loaded["libraries"] == {stem: os.path.abspath(os.path.join(path, f"lib{stem}.so"))},
+          f"{kind}: the child loaded {loaded['libraries']}, not the artifact's library")
+    check(not os.path.exists(cache) or not os.listdir(cache), f"{kind}: the child built a kernel")
+    # the same artifact with an altered fingerprint: declined, rebuilt
+    with open(os.path.join(path, "export_meta.yaml")) as f:
+        meta = yaml.safe_load(f)
+    altered = os.path.join(tmp, "altered", os.path.basename(path))
+    shutil.copytree(path, altered)
+    meta["torch"] = "0.0.0"
+    with open(os.path.join(altered, "export_meta.yaml"), "w") as f:
+        yaml.safe_dump(meta, f)
+    rebuilt, cache = run_deploy_child(altered, kind, tmp, f"{kind}_altered", nvcc=True)
+    check(any("declining the exported kernels" in w for w in rebuilt["warnings"]),
+          f"{kind}: the altered artifact was not declined with a warning: {rebuilt['warnings']}")
+    check(os.path.dirname(rebuilt["libraries"].get(stem, "")) == cache,
+          f"{kind}: the kernel was not rebuilt from the sources: {rebuilt['libraries']}")
+    rec = {"deploy": kind, "make_solver_s": make_s, "make_solver_first_solve_s": first_s}
+    for label, child in (("export", loaded), ("altered", rebuilt)):
+        diff = float(np.abs(np.asarray(child["action"]) - parent[0]).max())
+        bar = solve_bar(problem, parent[2], child["iterations"])
+        rec[label] = {"action_diff": diff, "bar": bar, "flags": (parent[1], child["flag"]),
+                      "iterations": (parent[2], child["iterations"]),
+                      **{k: child[k] for k in ("cuda_init_s", "construct_s", "first_solve_s",
+                                               "second_solve_s", "process_s")}}
+        check(child["flag"] == parent[1] and parent[1] >= 0,
+              f"{kind} {label}: exit flags {(parent[1], child['flag'])} (parent, child)")
+        check(diff <= bar, f"{kind} {label}: the child's action differs by {diff:.3e} > {bar:.0e}")
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def ros_ticks(device, ticks=8):
+    """``MpcRosLogic`` on ``ros_bridge/config/boxer_mpc_config.yaml`` for the
+    ticks of ``tests/test_ros_bridge.py`` on ``device``; returns the last
+    command and each tick's wall ms."""
+    from robot_mpcs_tpu_torch.config import load_setup
+    from robot_mpcs_tpu_torch.ros_bridge.mpc_planner_node import MpcRosLogic
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    logic = MpcRosLogic(load_setup(os.path.join(root, "ros_bridge", "config", "boxer_mpc_config.yaml")),
+                        device=device)
+    logic.update_goal([3.0, 0.0])
+    logic.update_obstacles([Sphere([10.0, 10.0, 0.0], 0.3)], r_body=0.5)
+    logic.planner.setJointLimits(([-10.0] * 3, [10.0] * 3))
+    logic.planner.setInputLimits(([-5.0, -5.0], [5.0, 5.0]))
+    logic.update_odometry(0.0, 0.0, 0.0, 0.0, 0.0)
+    v, tick_ms = np.zeros(2), []
+    for step in range(ticks):
+        t = time.perf_counter()
+        v = np.asarray(logic.compute_velocity_command())
+        tick_ms.append((time.perf_counter() - t) * 1e3)
+        logic.update_odometry(step * 0.05, 0.0, 0.0, v[0], v[1])
+    return v, tick_ms
+
+
+def deploy_phase(torch, rp, rb):
+    """The solver artifact and the ROS node on the card:
+
+    1. ``make_solver`` writes the panda and boxer artifacts with their kernel
+       libraries into a temporary directory;
+    2. a fresh process with ``nvcc`` unreachable loads each through
+       ``MPCPlanner.from_solver_dir`` and solves the example's first step:
+       the artifact's library is the one loaded, nothing is built, and the
+       action equals this process's solve of the same inputs within
+       ``solve_bar``;
+    3. an artifact whose ``export_meta.yaml`` was altered is declined with a
+       warning and the kernel is built from the sources (``nvcc`` into an
+       empty cache), the action again within ``solve_bar``;
+    4. ``MpcRosLogic`` runs ``ros_ticks`` on the card and ends with a forward
+       velocity above 0.05.
+
+    Returns each kernel's launches in the ROS node's ticks."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_deploy_")
+    for kind in DEPLOY:
+        deploy_check(kind, tmp)
+    shutil.rmtree(tmp)
+
+    counters = {"riccati_backward_packed": rp.riccati_backward_packed,
+                "riccati_backward_batched": rb.riccati_backward_batched}
+    for fn in counters.values():
+        fn.launches = 0
+    v, tick_ms = ros_ticks("cuda")
+    launches = {k: fn.launches for k, fn in counters.items()}
+    print(json.dumps({"ros_node": "boxer_mpc_config.yaml", "ticks": len(tick_ms), "final_command": v.tolist(),
+                      "tick_ms": tick_ms, "launches": launches}), flush=True)
+    check(v[0] > 0.05, f"ROS node: forward velocity {v[0]:.3f} after {len(tick_ms)} ticks")
+    check(launches["riccati_backward_batched"] > 0, "ROS node never launched the general kernel")
+    return {k: {"ros node": n} for k, n in launches.items() if n}
+
+
 def main() -> int:
     import torch
 
     if len(sys.argv) > 1 and sys.argv[1] == "--dist-rank":
         return dist_worker(torch, sys.argv[2])
+    if len(sys.argv) > 1 and sys.argv[1] == "--deploy-child":
+        return deploy_child(torch, *sys.argv[2:5])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
@@ -1402,6 +1680,10 @@ def main() -> int:
     print(f"group path done at {time.perf_counter() - t0:.1f} s", flush=True)
     planner_phase(torch, rp, rb)
     print(f"planner path done at {time.perf_counter() - t0:.1f} s", flush=True)
+    examples = examples_phase(torch, rp, rb)
+    print(f"examples done at {time.perf_counter() - t0:.1f} s", flush=True)
+    deploy = deploy_phase(torch, rp, rb)
+    print(f"deploy done at {time.perf_counter() - t0:.1f} s", flush=True)
     reference_phase(torch, "panda", panda, panda_scenario)
     reference_phase(torch, "boxer", boxer, boxer_scenario)
     print(f"card vs CPU done at {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1412,8 +1694,10 @@ def main() -> int:
 
     # launches is the main path's count; each path's own beside it
     packed["launches_by_path"] = {"panda fleet": packed["launches"], "group": group_packed,
-                                  **sharded, **reference_form}
-    batched["launches_by_path"] = {"group": batched["launches"]}
+                                  **sharded, **reference_form, **examples["riccati_backward_packed"],
+                                  **deploy.get("riccati_backward_packed", {})}
+    batched["launches_by_path"] = {"group": batched["launches"], **examples["riccati_backward_batched"],
+                                   **deploy.get("riccati_backward_batched", {})}
     print(json.dumps({"kernels": [packed, batched]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({

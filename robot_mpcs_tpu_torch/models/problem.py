@@ -16,13 +16,14 @@ Mirrors the role of reference ``robotmpcs/models/mpcModel.py`` (and
 Every stage function is batch-first: ``z (..., nz)`` and ``p (..., npar)``
 with the same leading dimensions. The solver-artifact directory
 (``generate_solver`` / ``from_solver_dir``) holds the same three YAML files
-as the JAX package's; the compiled code lives in the kernel build cache
-(``build/robot_mpcs_tpu_torch/``), not in the directory.
+as the JAX package's and, exported for the card, the kernel library the
+solve launches (``utils/aot.py``).
 """
 
 from __future__ import annotations
 
 import os
+import warnings
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -41,6 +42,7 @@ from robot_mpcs_tpu_torch.models.inequalities import INEQUALITY_REGISTRY
 from robot_mpcs_tpu_torch.models.objectives import OBJECTIVE_REGISTRY, ConstraintAvoidance
 from robot_mpcs_tpu_torch.models.params import ParamMap
 from robot_mpcs_tpu_torch.models.urdf import UrdfModel, load_urdf
+from robot_mpcs_tpu_torch.utils.devices import resolve_device
 
 
 class MpcProblem:
@@ -496,18 +498,24 @@ class MpcProblem:
 
     # ----------------------------------------------------- artifact I/O
 
-    def generate_solver(self, location: str = "./") -> str:
+    def generate_solver(self, location: str = "./", export: bool = True, device="cuda") -> str:
         """Persist the solver artifact directory (reference
         ``generateSolver``, mpcModel.py:128-141): paramMap.yaml,
-        properties.yaml and the full setup. Returns the artifact path.
+        properties.yaml and the full setup, plus (``export=True`` on a CUDA
+        ``device``) the kernel library the problem's solve launches and its
+        fingerprint (``utils/aot.export_planner_solve``), the analog of the
+        compiled solver the reference emits next to its YAML files. Returns
+        the artifact path.
 
-        The directory holds no compiled program: the solver is PyTorch code
-        plus the two Riccati kernels, which ``ops/_build.py`` compiles at
-        first use into the kernel build cache (``build/robot_mpcs_tpu_torch/``,
-        keyed by a hash of the sources, the nvcc flags and version).
+        A process that loads the artifact on the card with the export
+        (``MPCPlanner(..., solver_dir=path)``) runs its first solve without
+        building a kernel. On the CPU (``device="cpu"``) the solve runs the
+        kernels' plain versions, so only the three YAML files are written,
+        and a warning says so.
         """
         import yaml
 
+        dev = resolve_device(device) if export else None
         path = os.path.join(location, self.solver_name)
         os.makedirs(path, exist_ok=True)
         with open(os.path.join(path, "paramMap.yaml"), "w") as f:
@@ -516,6 +524,16 @@ class MpcProblem:
             yaml.dump(self.properties(), f, default_flow_style=False)
         with open(os.path.join(path, "setup.yaml"), "w") as f:
             yaml.dump(self.setup.to_dict(), f, default_flow_style=False)
+        if export and dev.type == "cuda":
+            from robot_mpcs_tpu_torch.utils.aot import export_planner_solve
+
+            export_planner_solve(self, path, device=dev)
+        elif export:
+            warnings.warn(
+                f"{path}: no kernels exported for {dev} (the CPU runs their plain "
+                f"versions); only the YAML files were written",
+                stacklevel=2,
+            )
         return path
 
     @classmethod

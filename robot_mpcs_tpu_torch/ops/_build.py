@@ -1,12 +1,15 @@
 """Build, load and call the port's hand-written CUDA kernels.
 
 Each ``csrc/*.cu`` source has a plain C entry point. ``load_library``
-compiles it with ``nvcc`` for ``sm_90a`` on first use into
-``build/robot_mpcs_tpu_torch/`` beside the package, under a name that hashes
+compiles it with ``nvcc`` for ``sm_90a`` on first use into the kernel cache
+(``utils/compile_cache.py``: ``$ROBOT_MPCS_TPU_CACHE``, else
+``build/robot_mpcs_tpu_torch/`` beside the package), under a name that hashes
 the source and the headers it includes (``csrc/riccati_common.cuh``), the
-nvcc flags and ``nvcc --version``, and loads it with
-``ctypes``. A missing ``nvcc`` or a failed build raises: no wrapper falls
-back to its plain version for a CUDA tensor.
+nvcc flags and ``nvcc --version``, and loads it with ``ctypes``. A library
+exported with a solver artifact (``utils/aot.py``) is registered instead
+(``register_library``), and then no ``nvcc`` is needed. A missing ``nvcc`` or
+a failed build raises: no wrapper falls back to its plain version for a CUDA
+tensor.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from robot_mpcs_tpu_torch.utils import compile_cache
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 NVCC_FLAGS = [
@@ -36,7 +41,8 @@ _libs: Dict[str, ctypes.CDLL] = {}
 
 
 def build_dir() -> Path:
-    return CSRC.parent.parent / "build" / "robot_mpcs_tpu_torch"
+    """Where libraries are built and looked up (``compile_cache.cache_dir``)."""
+    return compile_cache.cache_dir()
 
 
 def nvcc() -> str:
@@ -67,25 +73,31 @@ def source_files(source: Path) -> List[Path]:
     return files
 
 
+def source_key(stem: str) -> str:
+    """sha256 of what decides ``csrc/<stem>.cu``'s library apart from the
+    compiler: the source, the files it includes and the nvcc flags. A process
+    without ``nvcc`` can compute it (``utils/aot.py`` checks an exported
+    library with it)."""
+    key = b"".join(p.read_bytes() for p in source_files(CSRC / f"{stem}.cu"))
+    return hashlib.sha256(key + " ".join(NVCC_FLAGS).encode()).hexdigest()
+
+
 def build_library(stem: str) -> Tuple[Path, str]:
-    """Compile ``csrc/<stem>.cu`` unless a library of the same hash (the
-    source and the files it includes, flags, nvcc version) exists. Returns
-    its path and the compiler's output (``-Xptxas -v``: registers, spills,
-    shared memory per instantiation), empty when the library was already
-    built."""
+    """Compile ``csrc/<stem>.cu`` unless a library of the same key
+    (``source_key`` and the nvcc version) exists. Returns its path and the
+    compiler's output (``-Xptxas -v``: registers, spills, shared memory per
+    instantiation), empty when the library was already built."""
     source = CSRC / f"{stem}.cu"
     compiler = nvcc()
     version = subprocess.run(
         [compiler, "--version"], capture_output=True, text=True, check=True
     ).stdout
-    key = b"".join(p.read_bytes() for p in source_files(source))
-    key += " ".join(NVCC_FLAGS).encode() + version.encode()
-    tag = hashlib.sha256(key).hexdigest()[:16]
+    tag = hashlib.sha256((source_key(stem) + version).encode()).hexdigest()[:16]
     out_dir = build_dir()
     out = out_dir / f"lib{stem}_{tag}.so"
     if out.exists():
         return out, ""
-    out_dir.mkdir(parents=True, exist_ok=True)
+    compile_cache.enable_compile_cache(out_dir)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
     cmd = [compiler, *NVCC_FLAGS, "-o", tmp, str(source)]
@@ -101,10 +113,24 @@ def build_library(stem: str) -> Tuple[Path, str]:
 
 
 def load_library(stem: str) -> ctypes.CDLL:
-    """Build ``csrc/<stem>.cu`` if needed and load it; the loaded library is
-    kept for the process."""
+    """The library of ``csrc/<stem>.cu``: one registered for this process
+    (``register_library``), else built if needed and loaded; kept for the
+    process."""
     if stem not in _libs:
         _libs[stem] = ctypes.CDLL(str(build_library(stem)[0]))
+    return _libs[stem]
+
+
+def register_library(stem: str, path: os.PathLike) -> ctypes.CDLL:
+    """Load the library at ``path`` (by its absolute path, so the loader
+    searches no ``LD_LIBRARY_PATH``) as ``csrc/<stem>.cu``'s for this
+    process, unless one is loaded already; ``load_library`` then builds
+    nothing. The caller vouches that it was built from the same sources and
+    flags (``utils/aot.py`` checks ``source_key``)."""
+    if stem not in _libs:
+        lib = ctypes.CDLL(str(Path(path).resolve()))
+        getattr(lib, f"{stem}_launch")  # AttributeError for another library
+        _libs[stem] = lib
     return _libs[stem]
 
 

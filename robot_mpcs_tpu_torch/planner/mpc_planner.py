@@ -69,8 +69,11 @@ class MPCPlanner:
     ``device`` is where the solver runs: the CUDA card by default, ``"cpu"``
     for the CPU; asking for CUDA on a machine without it raises.
     ``solver_dir`` names the artifact directory the problem was read from
-    (``from_solver_dir``); it holds no compiled program (see
-    ``MpcProblem.generate_solver``).
+    (``from_solver_dir``). On the card, the kernel library exported there
+    (``MpcProblem.generate_solver(..., export=True)``) is loaded before the
+    solver is built, so the first solve builds no kernel; without a matching
+    export the kernel is built into the kernel cache
+    (``utils/compile_cache.py``), which must then be writable.
     """
 
     def __init__(
@@ -91,6 +94,13 @@ class MPCPlanner:
         self._nx, self._nu, self._ns = self._dims.nx, self._dims.nu, self._dims.ns
         self._N = self._dims.N
         self._r = 0.1  # default dynamic-obstacle radius (mpcPlanner.py:121)
+        if self._device.type == "cuda":
+            # the exported kernels (the ForcesPro ``Solver.from_directory``
+            # analog, reference mpcPlanner.py:73), else the kernel cache
+            from robot_mpcs_tpu_torch.utils import aot, compile_cache
+
+            if solver_dir is None or aot.load_planner_solve(problem, solver_dir, self._device) is None:
+                compile_cache.enable_compile_cache()
         # one batch-first solver serves solve (B = 1) and solve_batch (any B)
         self._solve_batch_fn = problem.build_solver(device=self._device)
         self.reset()

@@ -631,6 +631,12 @@ def build_solver(
             violation0_raw=violation0_raw,
         )
 
+    # the kernel library (csrc stem) the backward sweep launches on the card,
+    # None for the scan: what a solver artifact exports (utils/aot.py)
+    if packed is not None:
+        solve.riccati_kernel = "riccati_packed"
+    else:
+        solve.riccati_kernel = None if cfg.riccati_backend == "scan" else "riccati_batched"
     # exposed for white-box tests, as the JAX package's ``_internals``
     solve._internals = {
         "all_dyn_jacobians": all_dyn_jacobians,

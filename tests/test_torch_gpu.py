@@ -463,3 +463,38 @@ def test_reference_form_solves_on_card(generic):
     other = solver("cpu")(*args) if generic else problem.build_solver(device="cuda")(*args)
     chip_smoke.hold_solves(torch, "values vs split" if not generic else "generic card vs CPU",
                            res, other)
+
+
+@pytest.mark.gpu
+def test_example_reaches_its_goal_on_card(capsys):
+    """The pointRobot example's full episode on the card through the
+    command line's path: goal reached, only the structured kernel launched,
+    every launch at B=1."""
+    _need_card()
+    from robot_mpcs_tpu_torch.examples import point_robot_example
+
+    with chip_smoke.launches_by_batch(1) as tally:
+        before = rp.riccati_backward_packed.launches
+        assert point_robot_example.main([]) == 0
+    assert "goal reached at step" in capsys.readouterr().out
+    assert rp.riccati_backward_packed.launches > before
+    assert tally and all(name == "riccati_backward_packed" and B == 1 for name, B in tally)
+
+
+@pytest.mark.gpu
+def test_artifact_loads_with_nvcc_unreachable_on_card(tmp_path):
+    """``make_solver`` exports the panda artifact; a process without nvcc
+    loads its library and solves as this one does; an altered fingerprint is
+    declined and the kernel rebuilt (``chip_smoke.deploy_check``)."""
+    _need_card()
+    rec = chip_smoke.deploy_check("panda", str(tmp_path))
+    assert rec["export"]["action_diff"] <= rec["export"]["bar"]
+
+
+@pytest.mark.gpu
+def test_ros_logic_on_card():
+    _need_card()
+    before = rb.riccati_backward_batched.launches
+    v, ticks = chip_smoke.ros_ticks("cuda")
+    assert len(ticks) == 8 and v[0] > 0.05
+    assert rb.riccati_backward_batched.launches > before

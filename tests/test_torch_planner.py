@@ -263,7 +263,8 @@ def test_solver_dir_round_trip_with_jax(tmp_path):
     js, ts = _setups("pointRobot")
     jax_dir = JaxProblem(js).generate_solver(str(tmp_path / "jax"), export=False)
     problem = MpcProblem(ts)
-    port_dir = problem.generate_solver(str(tmp_path / "port"))
+    with pytest.warns(UserWarning, match="no kernels exported"):
+        port_dir = problem.generate_solver(str(tmp_path / "port"), device="cpu")
     assert os.path.basename(jax_dir) == os.path.basename(port_dir) == problem.solver_name
     payload = {}
     for d in (jax_dir, port_dir):
