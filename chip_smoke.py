@@ -17,7 +17,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
    * at every shape the main paths launch them at (``PACKED_SHAPES``:
      panda's and pointRobot's phase 1 and rescue tier, alone and in the
-     group, and their planners' B=1; ``GENERAL_SHAPES``: boxer's phase 1,
+     group, their planners' B=1 and the bench's panda B=64 with its rescue
+     tier; ``GENERAL_SHAPES``: boxer's phase 1,
      planner (B=1) and rescue tier, boxer at
      B=4096 with per-lane and batch-constant A/B, (14, 7, 20) at B=4096),
      each also timed and printed as a ``kernel_shape`` line;
@@ -118,6 +119,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    only) path: cold on the card against the CPU (flags on >= B - 4 lanes,
    costs 1e-5), warm (after 2 fleet steps) against the values path (costs
    of lanes both converge within 1e-4, ``tests/test_solver.py``'s bar).
+12. bench: ``python -m robot_mpcs_tpu_torch.bench`` in a child process at
+   B=4096 (3 warm-up steps at most, 3 timed, both extras on: panda latency
+   at B=1 and 64, pointRobot and boxer at B=1024), loading the kernels of
+   phase 2: it exits 0; its last line carries the headline's and the
+   extras' fields, every number finite, converged >= 0.9 and converged
+   violation <= 1e-4; the structured kernel launched in the panda window
+   and the general one in boxer's; ``nvcc``, wrapped by a logging script on
+   the child's ``PATH``, was asked only ``--version`` (the cache key),
+   never to compile. The enriched line is printed.
 
 Output: the kernels JSON line (each kernel's ``launches`` from the panda
 fleet and the group, and ``launches_by_path`` for every path), then the card's ``name, power.limit`` line, then the
@@ -140,27 +150,19 @@ import numpy as np
 BATCH = 4096
 STEPS = 6
 GROUP_STEPS = 5
-PANDA_SAMPLER = dict(
-    goal_box=((-0.5, -0.5, 0.2), (0.5, 0.5, 1.0)),
-    obstacle_box=((-0.8, -0.8, 0.2), (0.8, 0.8, 1.0)),
-    reachable_goals=True,
-)
-#: bench.py:48-77 per-class samplers (the weights are in the config dicts)
-GROUP_SAMPLERS = {
-    "pointRobot": dict(
-        goal_box=((-2.0, -2.0, 0.05), (2.0, 2.0, 0.05)),
-        obstacle_box=((-1.5, -1.5, 0.05), (1.5, 1.5, 0.05)),
-    ),
-    "panda": PANDA_SAMPLER,
-    "boxer": dict(
-        goal_box=((-2.0, -2.0, 0.0), (2.0, 2.0, 0.0)),
-        obstacle_box=((5.0, 5.0, 0.0), (6.0, 6.0, 0.0)),
-    ),
-}
 GROUP_SIZES = {"pointRobot": 1024, "panda": 2048, "boxer": 1024}
+
+
+def sampler(name):
+    """The benchmark's scenario sampler of one problem class (``CLASS_SPECS``
+    of ``robot_mpcs_tpu_torch/bench.py``; the weights are in the config dicts)."""
+    from robot_mpcs_tpu_torch.bench import CLASS_SPECS
+
+    return CLASS_SPECS[name]["sampler"]
 #: the shapes the main paths launch the structured kernel at, (B, N, n, ns):
-#: each fleet's phase 1 at full width and its rescue tier at 1/8 width, and
-#: the single-robot planner's B=1
+#: each fleet's phase 1 at full width and its rescue tier at 1/8 width, the
+#: single-robot planner's B=1 (also the bench's B=1 latency) and the bench's
+#: B=64 latency fleet with its rescue tier
 PACKED_SHAPES = {
     "panda phase 1": (BATCH, 20, 7, 0),
     "panda planner": (1, 20, 7, 0),
@@ -170,6 +172,8 @@ PACKED_SHAPES = {
     "group panda rescue": (GROUP_SIZES["panda"] // 8, 20, 7, 0),
     "group pointRobot phase 1": (GROUP_SIZES["pointRobot"], 20, 3, 0),
     "group pointRobot rescue": (GROUP_SIZES["pointRobot"] // 8, 20, 3, 0),
+    "bench panda B=64": (64, 20, 7, 0),
+    "bench panda B=64 rescue": (8, 20, 7, 0),
 }
 #: ... and the general kernel, (B, N, nx, nw, per-lane A/B): boxer's phase 1,
 #: its planner (B=1) and rescue tier, then boxer at B=4096 with per-lane and batch-constant
@@ -522,7 +526,7 @@ def path_phase(torch, rp):
 
     t0 = time.perf_counter()
     problem = panda_problem()
-    scenario = random_fleet_scenario(problem, BATCH, seed=0, **PANDA_SAMPLER)
+    scenario = random_fleet_scenario(problem, BATCH, seed=0, **sampler("panda"))
     runner = FleetRunner(problem, BATCH, device="cuda")
     scen = runner.to_device(scenario)
     state = runner.init_state(scen)
@@ -615,7 +619,8 @@ def group_phase(torch, rp, rb):
     t0 = time.perf_counter()
     setups = {"pointRobot": point_robot_setup, "panda": panda_setup, "boxer": boxer_setup}
     problems = {k: (MpcProblem(Setup.from_dict(setups[k]())), b) for k, b in GROUP_SIZES.items()}
-    scenarios = mixed_fleet_scenarios(problems, seed=0, sampler_kwargs=GROUP_SAMPLERS)
+    samplers = {k: sampler(k) for k in GROUP_SIZES}
+    scenarios = mixed_fleet_scenarios(problems, seed=0, sampler_kwargs=samplers)
     group = FleetGroup(problems, device="cuda")
     scen = group.to_device(scenarios)
     states = group.init_states(scen)
@@ -1142,7 +1147,7 @@ def dist_worker(torch, outdir):
     check(distributed.initialize(backend="gloo", device="cuda:0"), "no rendezvous variables")
     mesh = make_mesh()
     problem = panda_problem()
-    scenario = random_fleet_scenario(problem, BATCH, seed=0, **PANDA_SAMPLER)
+    scenario = random_fleet_scenario(problem, BATCH, seed=0, **sampler("panda"))
     runner = FleetRunner(problem, BATCH, mesh=mesh, kick_scale=0.0)
     scen = runner.shard_scenario(scenario)
     distributed.barrier()  # both ranks set up: the timed steps start together
@@ -1334,7 +1339,7 @@ def reference_form_phase(torch, rp, problem, state, scen):
 
     pr = MpcProblem(Setup.from_dict(point_robot_setup()))
     Bg = GENERIC_BATCH
-    sc = random_fleet_scenario(pr, Bg, seed=0, **GROUP_SAMPLERS["pointRobot"])
+    sc = random_fleet_scenario(pr, Bg, seed=0, **sampler("pointRobot"))
     d = pr.dims
     z0 = torch.zeros((Bg, d.N, d.nz))
     z0[:, :, : d.nx] = sc.xinit[:, None, :]
@@ -1643,6 +1648,83 @@ def deploy_phase(torch, rp, rb):
     return {k: {"ros node": n} for k, n in launches.items() if n}
 
 
+#: the benchmark child's settings: panda at full width, few steps, both
+#: extras on under a budget they fit in
+BENCH_ENV = dict(BENCH_BATCH=str(BATCH), BENCH_STEPS="3", BENCH_WARMUP_MAX="3",
+                 BENCH_TIME_BUDGET="600", BENCH_LATENCY="1", BENCH_MULTICLASS="1")
+BENCH_TIMEOUT_S = 600
+
+
+def _numbers(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _numbers(v)
+    elif isinstance(tree, (int, float)) and not isinstance(tree, bool):
+        yield tree
+
+
+def bench_phase(torch):
+    """``python -m robot_mpcs_tpu_torch.bench`` in a child process (``BENCH_ENV``),
+    with ``nvcc`` on its ``PATH`` replaced by a script that logs each call
+    and runs the real one: the child loads the kernels phase 2 built and may
+    ask ``nvcc --version`` (part of the cache key), never compile. Its last
+    line must carry every field, converged >= 0.9, converged violation <=
+    1e-4, finite numbers, and launches of the structured kernel in the
+    headline's window and of the general one in boxer's. Returns each
+    kernel's launches in the child, summed over its timed windows."""
+    import shutil
+    import tempfile
+
+    from robot_mpcs_tpu_torch import bench
+    from robot_mpcs_tpu_torch.ops import _build
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bench_")
+    log = os.path.join(tmp, "nvcc.log")
+    shim = os.path.join(tmp, "bin", "nvcc")
+    os.makedirs(os.path.dirname(shim))
+    with open(shim, "w") as f:
+        f.write(f'#!/bin/sh\necho "$*" >> "{log}"\nexec "{_build.nvcc()}" "$@"\n')
+    os.chmod(shim, 0o755)
+    env = dict(os.environ, **BENCH_ENV, PATH=os.path.dirname(shim) + os.pathsep + os.environ["PATH"])
+    for k in ("ROBOT_MPCS_COORDINATOR", "MASTER_ADDR"):  # world 1
+        env.pop(k, None)
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "robot_mpcs_tpu_torch.bench"], env=env,
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                          text=True, timeout=BENCH_TIMEOUT_S)
+    wall_s = time.perf_counter() - t
+    for line in proc.stderr.splitlines()[-10:]:
+        print(f"[bench] {line}", flush=True)
+    check(proc.returncode == 0, f"bench exited with {proc.returncode}")
+    lines = [s for s in proc.stdout.splitlines() if s.startswith("{")]
+    check(len(lines) == 2, f"bench printed {len(lines)} JSON lines, not 2")
+    print(lines[-1], flush=True)
+    res = json.loads(lines[-1])
+    extra = res["extra"]
+    missing = [k for k in bench.HEADLINE_FIELDS + bench.EXTRA_FIELDS if k not in extra]
+    check(res.get("metric") == "panda_H20_mpc_solves_per_s_per_chip" and not missing,
+          f"bench line lacks {missing}")
+    check(json.loads(lines[0])["value"] == res["value"], "headline and enriched line disagree")
+    check(all(np.isfinite(v) for v in _numbers(res)), "non-finite number in the bench line")
+    check(extra["converged_fraction"] >= 0.9, f"bench converged {extra['converged_fraction']} < 0.9")
+    check(extra["max_violation_converged"] <= 1e-4,
+          f"bench max_violation_converged {extra['max_violation_converged']:.3e}")
+    launches = extra["riccati_launches"]
+    check(launches["riccati_backward_packed"]["panda"] > 0,
+          "the bench's panda window launched no structured kernel")
+    check(launches["riccati_backward_batched"]["boxer"] > 0,
+          "the bench's boxer window launched no general kernel")
+    calls = []
+    if os.path.exists(log):
+        with open(log) as f:
+            calls = f.read().splitlines()
+    check(all(c.strip() == "--version" for c in calls), f"the bench child compiled: nvcc {calls}")
+    shutil.rmtree(tmp)
+    print(json.dumps({"bench_phase_s": wall_s, "nvcc_calls": calls,
+                      "launches": launches}), flush=True)
+    return {k: {"bench": sum(v.values())} for k, v in launches.items()}
+
+
 def main() -> int:
     import torch
 
@@ -1690,14 +1772,18 @@ def main() -> int:
     sharded = distributed_phase(torch, rp, panda, panda_scenario)
     print(f"distributed path done at {time.perf_counter() - t0:.1f} s", flush=True)
     reference_form = reference_form_phase(torch, rp, panda, panda_state, panda_scen)
+    print(f"reference form done at {time.perf_counter() - t0:.1f} s", flush=True)
+    bench = bench_phase(torch)
     print(f"all phases done at {time.perf_counter() - t0:.1f} s", flush=True)
 
     # launches is the main path's count; each path's own beside it
     packed["launches_by_path"] = {"panda fleet": packed["launches"], "group": group_packed,
                                   **sharded, **reference_form, **examples["riccati_backward_packed"],
-                                  **deploy.get("riccati_backward_packed", {})}
+                                  **deploy.get("riccati_backward_packed", {}),
+                                  **bench["riccati_backward_packed"]}
     batched["launches_by_path"] = {"group": batched["launches"], **examples["riccati_backward_batched"],
-                                   **deploy.get("riccati_backward_batched", {})}
+                                   **deploy.get("riccati_backward_batched", {}),
+                                   **bench["riccati_backward_batched"]}
     print(json.dumps({"kernels": [packed, batched]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({

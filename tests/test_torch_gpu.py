@@ -498,3 +498,27 @@ def test_ros_logic_on_card():
     v, ticks = chip_smoke.ros_ticks("cuda")
     assert len(ticks) == 8 and v[0] > 0.05
     assert rb.riccati_backward_batched.launches > before
+
+
+@pytest.mark.gpu
+def test_bench_on_card(capsys, monkeypatch):
+    """The port's benchmark on the card at B=512, extras off: two result
+    lines that name the card and count the structured kernel's launches in
+    the timed window; converged lanes feasible to tol_constraint."""
+    _need_card()
+    import json
+
+    from robot_mpcs_tpu_torch import bench
+
+    for k in ("ROBOT_MPCS_COORDINATOR", "MASTER_ADDR"):  # world 1: no rendezvous
+        monkeypatch.delenv(k, raising=False)
+    for k, v in dict(BENCH_BATCH="512", BENCH_STEPS="2", BENCH_LATENCY="0",
+                     BENCH_MULTICLASS="0").items():
+        monkeypatch.setenv(k, v)
+    assert bench.main([]) == 0
+    head, last = [json.loads(s) for s in capsys.readouterr().out.splitlines() if s.startswith("{")]
+    extra = last["extra"]
+    assert head["extra"]["device"] == extra["device"]
+    assert extra["device"].startswith(torch.cuda.get_device_name(0))
+    assert extra["riccati_launches"]["riccati_backward_packed"]["panda"] > 0
+    assert extra["batch"] == 512 and extra["max_violation_converged"] <= 1e-4
