@@ -9,32 +9,39 @@ Phases, each of which fails the run (non-zero exit, no result line):
    device (or no port package beside this script) exits non-zero.
 2. build: both CUDA sources (``csrc/riccati_packed.cu``,
    ``csrc/riccati_batched.cu``, each including ``csrc/riccati_common.cuh``)
-   compiled at once, one ``nvcc`` each, with each instantiation's
-   registers, spills and shared memory (``-Xptxas -v``) printed.
+   compiled for every shape this script runs (``kernel_pairs``), one
+   ``nvcc`` per shape, all at once, with each library's registers, spills
+   and stack (``-Xptxas -v``) printed.
 3. kernels, each held against its plain PyTorch version on the same CUDA
    tensors, the structured sweep at rtol 2e-3 / atol 2e-5, the general one
    at rtol 2e-3 / atol 2e-4 (``tests/test_riccati_pallas.py:70-75``):
 
    * at every shape the main paths launch them at (``PACKED_SHAPES``:
      panda's and pointRobot's phase 1 and rescue tier, alone and in the
-     group, their planners' B=1 and the bench's panda B=64 with its rescue
-     tier; ``GENERAL_SHAPES``: boxer's phase 1,
-     planner (B=1) and rescue tier, boxer at
-     B=4096 with per-lane and batch-constant A/B, (14, 7, 20) at B=4096),
-     each also timed and printed as a ``kernel_shape`` line;
+     group, their planners' B=1, the bench's panda B=64 with its rescue
+     tier, holonomic arms of 2, 6 and 15 dof with and without slack, the
+     6-dof chain's B=64 and 17 dof with slack; ``GENERAL_SHAPES``: boxer's
+     phase 1, planner (B=1) and rescue tier, boxer at B=4096 with per-lane
+     and batch-constant A/B, (14, 7, 20) at B=4096, the mobile panda (22,
+     9) and with slack (22, 10) at B=1024, 128 and 1 with per-lane and
+     batch-constant A/B, (36, 16) at B=128), each also timed and printed as
+     a ``kernel_shape`` line;
    * the structured sweep at the test dims (3, 0, 6), (3, 1, 5) and panda
      with a slack column (nw=8); a NaN-poisoned lane must be the only
      failed lane;
    * the general sweep at (nx, nw, N, B) = (6, 3, 5, 5), (14, 7, 20, 64)
      and (8, 3, 10, 64); a lane with negative-definite ``lww`` and a
-     NaN-poisoned lane must each fail alone, the first with all-zero gains.
+     NaN-poisoned lane must each fail alone, the first with all-zero gains;
+     a shape of which one lane does not fit a block (``OVERSIZED``) must
+     raise naming ``riccati_backend="scan"`` and launch nothing.
 
    A kernel's time (``ms``) is its device time per launch from
    ``torch.profiler`` over 20 launches; ``call_ms`` and ``plain_ms`` are
    CUDA events around one wrapper call (host launch path included), median
    after warm-up. Each kernel's bound is the larger of its bytes over
    3.35 TB/s and its fp32 flops over 67 TFLOP/s. The kernels line carries
-   each kernel at its phase-1 shape (panda B=4096; boxer B=1024).
+   each kernel at its phase-1 shape (panda B=4096; the mobile panda
+   B=1024).
 4. panda path: the panda fleet (``examples/config/pandaMpc.yaml`` with the
    fleet benchmark's repulsion weight), B=4096 random scenarios from seed 0,
    through ``FleetRunner(..., device="cuda")`` for 6 closed-loop steps with
@@ -47,7 +54,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    gives the device's busy time, kernel count and idle share.
 5. group path: ``FleetGroup`` of pointRobot 1024, panda 2048 and boxer 1024
    lanes (``mixed_fleet_scenarios(seed=0)`` with bench.py's per-class
-   samplers and weights) for 5 closed-loop steps (launches per step printed
+   samplers and weights) for 4 closed-loop steps (launches per step printed
    by kernel and batch size). Both kernels' launch counts must grow (the
    structured one from panda and pointRobot, the general one from boxer),
    every per-class metric must be finite and each class's last-step
@@ -55,6 +62,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    synchronized wall time per step, one profiled group step, and one
    profiled call of the solver's diff-drive Jacobians (forward-mode
    autodiff, ``dynamics_jacobians``).
+5b. mobile panda path: the panda arm on a diff-drive base
+   (``mobile_panda_setup``: nx = 22, nu = 9) as a fleet of 1024 lanes from
+   seed 0 (``MOBILE_SAMPLER``, rescue tier at 1/8, no kick) for 6 steps,
+   with their own launch counts: the general kernel must launch at B=1024
+   and 128, every metric be finite, the last step's converged fraction >=
+   0.9 and its converged lanes feasible to 1e-4. Prints each step's wall
+   ms, converged fraction, goal distance and mean iterations, launches by
+   batch size, one profiled step, then 64 lanes of the last state solved on
+   the card and on the CPU at phase 9's bars.
 6. planner path: the single-robot receding-horizon planner (``MPCPlanner``
    with ``KinematicSim``, ``FreeSpaceDecomposition``, ``GlobalPlanner``) on
    the card, each run read with its own launch counts (set to 0 before it):
@@ -82,22 +98,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
    beside the JAX example's on a CPU, the exit-flag counts, per-solve p50 /
    p90, FSD ms per step (boxer), A* ms and waypoints (global, supermarket)
    and launches per solve.
-8. deploy: ``make_solver`` exports the panda and boxer artifacts with their
-   kernel libraries; a fresh process with ``nvcc`` unreachable (not on
+8. deploy: ``make_solver`` exports the panda, boxer and mobile-panda
+   artifacts with their kernel libraries (each compiled for its robot's
+   shape); a fresh process with ``nvcc`` unreachable (not on
    ``PATH``, ``CUDA_HOME`` nowhere, ``_build.nvcc`` raising) loads each
    through ``MPCPlanner.from_solver_dir(..., device="cuda")``, builds nothing
    and solves the example's first step as this process does (within
-   ``solve_bar``); an artifact with an altered ``export_meta.yaml`` is
-   declined with a warning and its kernel rebuilt from the sources (within
-   ``solve_bar`` again); each child's construction, first and second solve
+   ``solve_bar``); a panda or boxer artifact with an altered
+   ``export_meta.yaml`` is declined with a warning and its kernel rebuilt
+   from the sources (within ``solve_bar`` again); each child's construction, first and second solve
    are timed. ``MpcRosLogic`` on ``ros_bridge/config/boxer_mpc_config.yaml``
    runs the 8 ticks of ``tests/test_ros_bridge.py`` on the card and ends
    with a forward velocity above 0.05.
 9. reference: 64 lanes solved on the card and on the CPU (plain Riccati
-   versions), for panda and for boxer: exit flags agree on >= 60 of 64,
-   true costs of lanes both converge within 1e-4 relative, converged
-   violation <= 1e-4.
-10. distributed: the panda fleet (B=4096, 2 steps, no kick) over a
+   versions), for panda, for boxer and for the 6-dof chain (``chain6_setup``:
+   the structured kernel at (12, 6, 0), launched at B=64 only): exit flags
+   agree on >= 60 of 64, true costs of lanes both converge within 1e-4
+   relative, converged violation <= 1e-4.
+10. distributed: the panda fleet (B=4096, 1 step, no kick) over a
    ``torch.distributed`` process group. NCCL at world 1 (``mesh=make_mesh()``,
    the two metric all-reduces run) must equal the plain step: states within
    1e-6, metrics and exit flags equal. Two ranks on the one card, each its
@@ -130,8 +148,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    never to compile. The enriched line is printed.
 
 Output: the kernels JSON line (each kernel's ``launches`` from the panda
-fleet and the group, and ``launches_by_path`` for every path), then the card's ``name, power.limit`` line, then the
-result line ``{"ok": true, "device": {...}}`` last.
+fleet and the mobile panda fleet, and ``launches_by_path`` for every
+path), then the card's ``name, power.limit`` line, then the result line
+``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
@@ -149,8 +168,15 @@ import numpy as np
 
 BATCH = 4096
 STEPS = 6
-GROUP_STEPS = 5
+GROUP_STEPS = 4
 GROUP_SIZES = {"pointRobot": 1024, "panda": 2048, "boxer": 1024}
+#: the mobile panda's fleet (``mobile_panda_setup``): B lanes from seed 0,
+#: the default rescue tier (1/8 width), no kick, bench.py's boxer-like
+#: sampler (goals around the base, obstacles out of the way)
+MOBILE_BATCH = 1024
+MOBILE_STEPS = 6
+MOBILE_SAMPLER = dict(goal_box=((-1.5, -1.5, 0.3), (1.5, 1.5, 1.0)),
+                      obstacle_box=((4.0, 4.0, 0.2), (5.0, 5.0, 1.0)))
 
 
 def sampler(name):
@@ -174,10 +200,24 @@ PACKED_SHAPES = {
     "group pointRobot rescue": (GROUP_SIZES["pointRobot"] // 8, 20, 3, 0),
     "bench panda B=64": (64, 20, 7, 0),
     "bench panda B=64 rescue": (8, 20, 7, 0),
+    # any holonomic shape: 2, 6 and 15 dof, with and without slack;
+    # the 6-dof chain's 64-lane solve; 17 dof, past the old one-thread-per-
+    # column cap (1 + nx = 35 columns on a 32-thread team)
+    "holonomic n=2": (1024, 20, 2, 0),
+    "holonomic n=2 slack": (1024, 20, 2, 1),
+    "holonomic n=6": (1024, 20, 6, 0),
+    "holonomic n=6 slack": (1024, 20, 6, 1),
+    "holonomic n=15": (1024, 20, 15, 0),
+    "holonomic n=15 slack": (1024, 20, 15, 1),
+    "6-dof chain B=64": (64, 20, 6, 0),
+    "holonomic n=17 slack": (128, 20, 17, 1),
 }
 #: ... and the general kernel, (B, N, nx, nw, per-lane A/B): boxer's phase 1,
 #: its planner (B=1) and rescue tier, then boxer at B=4096 with per-lane and batch-constant
-#: A/B, and (14, 7) with per-lane A/B (no robot model runs it)
+#: A/B, and (14, 7) with per-lane A/B (no robot model runs it); the mobile
+#: panda (22, 9) and with slack (22, 10) at its fleet's phase 1 and rescue
+#: tier and a planner's B=1, per lane and batch-constant; (36, 16), a 14-dof
+#: arm on a diff-drive base, past the old one-thread-per-column cap
 GENERAL_SHAPES = {
     "group boxer phase 1": (GROUP_SIZES["boxer"], 10, 8, 2, True),
     "boxer planner": (1, 10, 8, 2, True),
@@ -185,7 +225,19 @@ GENERAL_SHAPES = {
     "boxer B=4096": (BATCH, 10, 8, 2, True),
     "boxer B=4096 batch-constant": (BATCH, 10, 8, 2, False),
     "(14, 7) B=4096": (BATCH, 20, 14, 7, True),
+    **{f"mobile panda{' slack' if nw == 10 else ''} {where}{'' if per_lane else ' batch-constant'}":
+       (B, 20, 22, nw, per_lane)
+       for nw in (9, 10) for per_lane in (True, False)
+       for where, B in (("phase 1", MOBILE_BATCH), ("rescue", MOBILE_BATCH // 8), ("B=1", 1))},
+    "(36, 16) B=128": (128, 20, 36, 16, True),
+    "(36, 16) B=128 batch-constant": (128, 20, 36, 16, False),
 }
+#: the kernel-phase test dims beside the main paths' shapes: structured
+#: (n, ns), general (nx, nw)
+TEST_PACKED, TEST_GENERAL = ((3, 0), (3, 1), (7, 1)), ((6, 3), (14, 7), (8, 3), (8, 2))
+#: a shape of which not one lane fits a block's 227 KB: a 31-dof arm on a
+#: diff-drive base with slack (nx = 70, nw = 34)
+OVERSIZED = (70, 34)
 RTOL, ATOL = 2e-3, 2e-5
 GEN_RTOL, GEN_ATOL = 2e-3, 2e-4
 #: H100 SXM datasheet peaks: HBM bytes/s, fp32 flop/s
@@ -194,6 +246,35 @@ HBM_BPS, FP32_FLOPS = 3.35e12, 67e12
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+def mobile_panda_setup():
+    """The panda arm on a diff-drive base: ``examples/config/pandaMpc.yaml``
+    (``panda_setup()`` with the file's ``wconstr``) with ``robot.base_type:
+    diffdrive``, ``mpc.n: 10`` and nine ``wvel`` weights. x = [x, y, theta,
+    q_arm (7), their rates, v, omega]: nx = 22, nu = 9, the general sweep
+    at (22, 9) with per-lane A/B."""
+    from robot_mpcs_tpu_torch.config import panda_setup
+
+    d = panda_setup()
+    d["mpc"]["weights"].update(wconstr=[0.5, 0.0, 0.0, 0.0], wvel=[1.0] * 9)
+    d["mpc"]["n"] = 10
+    d["robot"]["base_type"] = "diffdrive"
+    return d
+
+
+def chain6_setup():
+    """A 6-dof holonomic chain: ``panda_setup()`` cut at ``panda_link6``,
+    collision links 3 and 5, the self-collision pair (3, 6). nx = 12, nu =
+    6: the structured sweep at (12, 6, 0)."""
+    from robot_mpcs_tpu_torch.config import panda_setup
+
+    d = panda_setup()
+    d["mpc"]["n"] = 6
+    d["mpc"]["weights"]["wvel"] = [1.0] * 6
+    d["robot"].update(end_link="panda_link6", collision_links=["panda_link3", "panda_link5"],
+                      selfCollision={"pairs": [["panda_link3", "panda_link6"]]})
+    return d
 
 
 def check(cond, msg):
@@ -297,7 +378,7 @@ def time_kernel_shapes(torch, rp, rb, plain=True):
     tensors (rtol 2e-3, atol 2e-5 structured / 2e-4 general), then timed:
     ``ms`` device time per launch (``torch.profiler``, 20 launches),
     ``call_ms`` CUDA events around one wrapper call, ``plain_ms`` the plain
-    version (skipped with ``plain=False``), ``bound_ms`` from
+    version (median of 5 calls; skipped with ``plain=False``), ``bound_ms`` from
     ``sweep_bound``. Prints and returns one record per shape."""
     a, b1, b2 = 0.05, 0.00125, 0.05  # panda's dt = 0.05 double integrator
 
@@ -329,7 +410,7 @@ def time_kernel_shapes(torch, rp, rb, plain=True):
             "kernel": name, "shape": label, "B": B, "N": kw["N"], "nx": kw["nx"], "nw": kw["nw"],
             "dyn": dyn, "max_abs_err": err, "ms": kernel_device_ms(torch, call, kernel),
             "call_ms": time_ms(call, torch),
-            "plain_ms": time_ms(lambda: reference(*args, **kw), torch, reps=10) if plain else None,
+            "plain_ms": time_ms(lambda: reference(*args, **kw), torch, reps=5, warmup=1) if plain else None,
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
         print(json.dumps({"kernel_shape": rec}), flush=True)
@@ -337,20 +418,29 @@ def time_kernel_shapes(torch, rp, rb, plain=True):
     return records
 
 
+def kernel_pairs():
+    """Every (stem, shape) the smoke launches: the main paths' shapes
+    (``PACKED_SHAPES``, ``GENERAL_SHAPES``, which hold every robot's) and
+    the kernel phases' test dims."""
+    packed = {(2 * n, n + ns, ns) for n, ns in TEST_PACKED}
+    packed |= {(2 * n, n + ns, ns) for _, _, n, ns in PACKED_SHAPES.values()}
+    general = set(TEST_GENERAL) | {(nx, nw) for _, _, nx, nw, _ in GENERAL_SHAPES.values()}
+    return [("riccati_packed", s) for s in sorted(packed)] + [("riccati_batched", s) for s in sorted(general)]
+
+
 def build_phase():
-    """Compile both kernel sources at once (one nvcc each) and print what
-    ``-Xptxas -v`` says about each instantiation."""
+    """Compile every kernel shape the smoke runs at once (one nvcc each, in
+    parallel) and print what ``-Xptxas -v`` says about each: registers,
+    spills, shared memory."""
     from robot_mpcs_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    stems = ("riccati_packed", "riccati_batched")
-    with concurrent.futures.ThreadPoolExecutor(len(stems)) as pool:
-        results = dict(zip(stems, pool.map(_build.build_library, stems)))
-    print(f"kernel build (parallel): {time.perf_counter() - t0:.1f} s", flush=True)
-    for stem, (path, log) in results.items():
-        print(f"{stem}: {path.name}", flush=True)
+    results = _build.build_libraries(kernel_pairs())
+    print(f"kernel build ({len(results)} shapes, parallel): {time.perf_counter() - t0:.1f} s", flush=True)
+    for (stem, shape), (path, log) in results.items():
+        print(f"{stem} {shape}: {path.name}", flush=True)
         for line in log.splitlines():
-            if "Compiling entry" in line or "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line:
                 print(f"  {line.strip()}", flush=True)
 
 
@@ -411,8 +501,9 @@ def packed_kernel_phase(torch, rp, shapes):
 
 def batched_kernel_phase(torch, rb, shapes):
     """The general Riccati kernel at the test dims and with a slack column
-    (the main path's shapes are compared in ``time_kernel_shapes``) and its
-    bad-lane contracts; returns its kernels-line record."""
+    (the main path's shapes are compared in ``time_kernel_shapes``), its
+    bad-lane contracts and the refusal of a shape whose lane does not fit
+    (``OVERSIZED``); returns its kernels-line record."""
     for nx, nw, N, B in ((6, 3, 5, 5), (14, 7, 20, 64), (8, 3, 10, 64)):
         args = [torch.as_tensor(v, device="cuda") for v in random_general_inputs(B, N, nx, nw)]
         kw = dict(N=N, nx=nx, nw=nw)
@@ -448,8 +539,22 @@ def batched_kernel_phase(torch, rb, shapes):
             check(bool((k[bad_lane] == 0).all() and (K[bad_lane] == 0).all()),
                   "negative-definite lane has non-zero gains")
         print(f"general {poison}-lane contract: only lane {bad_lane} failed", flush=True)
+    # a shape of which one lane does not fit a block raises, naming the
+    # scan, before anything is built or launched
+    nx, nw = OVERSIZED
+    wide = [torch.as_tensor(v, device="cuda") for v in random_general_inputs(2, 2, nx, nw)]
+    before = rb.riccati_backward_batched.launches
+    try:
+        rb.riccati_backward_batched(*wide, N=2, nx=nx, nw=nw)
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    check(raised is not None and 'riccati_backend="scan"' in raised and "bytes" in raised,
+          f"the oversized shape {OVERSIZED} did not raise naming the scan: {raised}")
+    check(rb.riccati_backward_batched.launches == before, "the oversized shape launched")
+    print(f"oversized general shape {OVERSIZED} refused: {raised}", flush=True)
     return kernel_record("riccati_backward_batched", "robot_mpcs_tpu_torch/csrc/riccati_batched.cu",
-                         "robot_mpcs_tpu/ops/riccati_pallas.py:189", shapes, "group boxer phase 1")
+                         "robot_mpcs_tpu/ops/riccati_pallas.py:189", shapes, "mobile panda phase 1")
 
 
 @contextlib.contextmanager
@@ -486,7 +591,10 @@ def launches_by_batch(steps):
 def profile_windows(torch, fns, kernel_names):
     """Run each of ``fns`` under its own ``torch.profiler`` window; returns
     per-window and total (wall ms, device events, device busy ms, per-kernel
-    ms) and the idle share over all windows."""
+    ms) and the idle share over all windows. The device events are read
+    from the profiler's raw (kineto) records: building its Python event
+    list (``prof.events()``) instead takes minutes for a fleet step of
+    300k device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -498,16 +606,15 @@ def profile_windows(torch, fns, kernel_names):
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t) * 1e3
-        device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        device = [(e.name(), e.duration_ns()) for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == DeviceType.CUDA]
         rec = {
             "wall_ms": wall_ms,
             "device_events": len(device),
-            "device_busy_ms": float(sum(e.time_range.elapsed_us() for e in device)) / 1e3,
+            "device_busy_ms": sum(ns for _, ns in device) / 1e6,
         }
         for k in kernel_names:
-            rec[f"{k}_ms"] = float(sum(
-                e.time_range.elapsed_us() for e in device if k in e.name
-            )) / 1e3
+            rec[f"{k}_ms"] = sum(ns for n, ns in device if k in n) / 1e6
         out[name] = rec
         for k in total:
             total[k] += rec[k]
@@ -696,6 +803,84 @@ def group_phase(torch, rp, rb):
     _, jt = profile_windows(torch, {"jac": lambda: jac(z[..., :nx], z[..., nx:])}, [])
     print(json.dumps({"boxer_dyn_jacobians_call": jt}), flush=True)
     return problems["boxer"][0], scenarios["boxer"], packed_launches, batched_launches
+
+
+def mobile_phase(torch, rb):
+    """The mobile panda (``mobile_panda_setup``) fleet on the card:
+    ``MOBILE_BATCH`` lanes from seed 0 with the default rescue tier (1/8
+    width) and no kick, ``MOBILE_STEPS`` steps read with their own launch
+    counts, one profiled step, then 64 lanes of its last state solved on the
+    card and on the CPU (``reference_phase``). Returns the general kernel's
+    launches in the counted steps."""
+    from robot_mpcs_tpu_torch.config import Setup
+    from robot_mpcs_tpu_torch.models.problem import MpcProblem
+    from robot_mpcs_tpu_torch.parallel.fleet import FleetRunner, random_fleet_scenario
+
+    t0 = time.perf_counter()
+    problem = MpcProblem(Setup.from_dict(mobile_panda_setup()))
+    scenario = random_fleet_scenario(problem, MOBILE_BATCH, seed=0, **MOBILE_SAMPLER)
+    runner = FleetRunner(problem, MOBILE_BATCH, device="cuda", kick_scale=0.0)
+    scen = runner.to_device(scenario)
+    state = runner.init_state(scen)
+    torch.cuda.synchronize()
+    print(f"mobile panda set-up: {time.perf_counter() - t0:.1f} s", flush=True)
+    rb.riccati_backward_batched.launches = 0
+    step_ms = []
+    t0 = time.perf_counter()
+    with launches_by_batch(MOBILE_STEPS) as tally:
+        for i in range(MOBILE_STEPS):
+            t = time.perf_counter()
+            state, metrics = runner.step(state, scen)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            m = {k: float(v) for k, v in metrics._asdict().items()}
+            print(json.dumps({"mobile_step": i, "step_ms": step_ms[-1], **{k: m[k] for k in (
+                "converged_fraction", "mean_goal_distance", "mean_iterations", "max_violation_converged",
+                "rescue_overflow_fraction")}}), flush=True)
+            check(all(np.isfinite(v) for v in m.values()), f"non-finite mobile panda metrics at step {i}: {m}")
+    launches = rb.riccati_backward_batched.launches
+    batches = {B for name, B in tally if name == "riccati_backward_batched"}
+    check(launches > 0, "the mobile panda fleet never launched the general kernel")
+    check({MOBILE_BATCH, MOBILE_BATCH // 8} <= batches,
+          f"the mobile panda fleet launched the general kernel at B = {sorted(batches)}")
+    check(tuple(state.z_warm.shape) == (MOBILE_BATCH, problem.dims.N, problem.dims.nz), "mobile state shape")
+    check(bool(torch.isfinite(state.x).all()), "non-finite mobile panda plant state")
+    check(m["converged_fraction"] >= 0.9, f"mobile panda converged_fraction {m['converged_fraction']} < 0.9")
+    check(m["max_violation_converged"] <= 1e-4, "mobile panda: converged lanes violate constraints")
+    t1 = time.perf_counter()
+    _, total = profile_windows(torch, {"mobile": lambda: runner.step(state, scen)}, ["riccati_batched_kernel"])
+    t2 = time.perf_counter()
+    print(json.dumps({
+        "fleet": "mobile panda", "batch": MOBILE_BATCH, "steps": MOBILE_STEPS, "kernel_launches": launches,
+        "step_ms": step_ms, "steady_step_ms": float(np.median(step_ms[1:])),
+        "profiled_step_ms": total["wall_ms"], "device_events": total["device_events"],
+        "device_busy_ms": total["device_busy_ms"], "riccati_kernel_ms": total["riccati_batched_kernel_ms"],
+        "idle_share_in_profiled_step": total["idle_share"],
+    }), flush=True)
+    reference_phase(torch, "mobile panda (warm, after the fleet's steps)", problem, scenario,
+                    warm=(state.x, state.z_warm, state.lam))
+    print(json.dumps({"mobile_phase_s": {"steps": t1 - t0, "profiled_step": t2 - t1,
+                                         "card_vs_cpu": time.perf_counter() - t2}}), flush=True)
+    return launches
+
+
+def chain_phase(torch, rp):
+    """The 6-dof chain (``chain6_setup``): 64 lanes solved cold on the card
+    (the structured kernel at (12, 6, 0), B=64 only) and on the CPU
+    (``reference_phase``). Returns the structured kernel's launches."""
+    from robot_mpcs_tpu_torch.config import Setup
+    from robot_mpcs_tpu_torch.models.problem import MpcProblem
+    from robot_mpcs_tpu_torch.parallel.fleet import random_fleet_scenario
+
+    problem = MpcProblem(Setup.from_dict(chain6_setup()))
+    scenario = random_fleet_scenario(problem, 64, seed=0, **sampler("panda"))
+    rp.riccati_backward_packed.launches = 0
+    with launches_by_batch(1) as tally:
+        reference_phase(torch, "6-dof chain (cold)", problem, scenario)
+    launches = rp.riccati_backward_packed.launches
+    check(launches > 0, "the 6-dof chain's solve never launched the structured kernel")
+    check(set(tally) == {("riccati_backward_packed", 64)}, f"the 6-dof chain launched {dict(tally)}")
+    return launches
 
 
 #: closed-loop solve caps of the planner runs, and the number of their first
@@ -1045,16 +1230,24 @@ def global_planner_phase():
                       "astar": "native" if astar._NATIVE is not None else "python fallback"}), flush=True)
 
 
-def reference_phase(torch, label, problem, scenario):
-    """One batched solve of 64 lanes on the card vs the same solve on the CPU."""
+def reference_phase(torch, label, problem, scenario, warm=None):
+    """One batched solve of 64 lanes on the card vs the same solve on the
+    CPU: cold from the scenario, or from ``warm`` = (x, z, lam), a fleet
+    state's first 64 lanes."""
     B = 64
     dims = problem.dims
     xinit, params = scenario.xinit[:B], scenario.params[:B]
     z0 = torch.zeros((B, dims.N, dims.nz))
     z0[:, :, : dims.nx] = xinit[:, None, :]
     lam0 = torch.zeros((B, dims.N, problem.n_con))
+    if warm is not None:
+        xinit, z0, lam0 = (t[:B].cpu() for t in warm)
+    t = time.perf_counter()
     res_gpu = problem.build_solver(device="cuda")(xinit, params, z0, lam0)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t
     res_cpu = problem.build_solver(device="cpu")(xinit, params, z0, lam0)
+    t_cpu = time.perf_counter() - t - t_card
     check(tuple(res_gpu.z.shape) == (B, dims.N, dims.nz), f"{label}: solve output shape")
     check(bool(torch.isfinite(res_gpu.z).all()), f"{label}: non-finite solve output")
     flag_gpu, flag_cpu = res_gpu.exitflag.cpu(), res_cpu.exitflag
@@ -1065,16 +1258,17 @@ def reference_phase(torch, label, problem, scenario):
     viol = res_gpu.violation.cpu()[flag_gpu == 1]
     print(f"{label} card vs CPU solve (B={B}): exit flags agree {agree}/{B}, converged on both "
           f"{int(both.sum())}, max rel cost diff {float(rel.max()):.3e}, "
-          f"max violation (converged) {float(viol.max()):.3e}", flush=True)
+          f"max violation (converged) {float(viol.max()):.3e}; solve {t_card:.2f} s on the card, "
+          f"{t_cpu:.2f} s on the CPU", flush=True)
     # f32 sums in another order can flip a borderline line-search accept
     check(agree >= B - 4, f"{label}: exit flags agree on only {agree}/{B} lanes")
     check(float(rel.max()) <= 1e-4, f"{label}: true costs of converged lanes disagree")
     check(float(viol.max()) <= 1e-4, f"{label}: converged lanes violate constraints")
 
 
-#: the distributed phase: the panda fleet over a process group for 2 steps
+#: the distributed phase: the panda fleet over a process group for 1 step
 #: from a cold start, without the kick (its noise depends on the rank)
-DIST_STEPS = 2
+DIST_STEPS = 1
 DIST_TIMEOUT_S = 480
 #: the reference-form phase: a warm panda solve at the rescue tier's shape,
 #: and a pointRobot solve through the generic (cost/ineq-only) path
@@ -1422,8 +1616,9 @@ def examples_phase(torch, rp, rb):
 
 
 #: the artifacts ``deploy_phase`` writes with ``make_solver``, and each one's
-#: kernel library
-DEPLOY = {"panda": "riccati_packed", "boxer": "riccati_batched"}
+#: kernel library (the mobile panda's config is written from
+#: ``mobile_panda_setup``: it has no file in the repo)
+DEPLOY = {"panda": "riccati_packed", "boxer": "riccati_batched", "mobilePanda": "riccati_batched"}
 DEPLOY_TIMEOUT_S = 300
 
 
@@ -1446,6 +1641,15 @@ def deploy_scene(kind, planner):
         planner.setJointLimits((lim[:, 0], lim[:, 1]))
         planner.setInputLimits(([-10.0] * 7, [10.0] * 7))
         obs = (x0[:7], x0[7:])
+    elif kind == "mobilePanda":  # the arm as panda's scene, on a base at the origin
+        x0[3:10] = [0.0, -0.8, 0.0, -1.5, 0.0, 1.0, 0.0]
+        lim = planner._problem.kin.joint_limits
+        planner.setGoalReaching([1.0, 0.5, 0.6])
+        planner.setRadialConstraints([Sphere([4.0, 4.0, 0.5], 0.2)], 0.1)
+        planner.setSelfCollisionAvoidanceConstraints(0.1)
+        planner.setJointLimits(([-10.0] * 3 + list(lim[:, 0]), [10.0] * 3 + list(lim[:, 1])))
+        planner.setInputLimits(([-10.0] * 9, [10.0] * 9))
+        obs = (x0[:10], x0[10:20], x0[20:])
     else:
         import torch
 
@@ -1505,7 +1709,7 @@ def deploy_child(torch, solver_dir, kind, out):
     cuda_init_s, construct_s, first_s, second_s = np.diff(times).tolist()
     with open(out, "w") as f:
         json.dump({"action": action.tolist(), "flag": flag, "iterations": iterations,
-                   "libraries": {k: lib._name for k, lib in _build._libs.items()},
+                   "libraries": {stem: lib._name for (stem, _), lib in _build._libs.items()},
                    "warnings": [str(w.message) for w in caught], "cuda_init_s": cuda_init_s,
                    "construct_s": construct_s,
                    "first_solve_s": first_s, "second_solve_s": second_s,
@@ -1534,11 +1738,9 @@ def run_deploy_child(solver_dir, kind, tmp, label, nvcc):
         return json.load(f), cache
 
 
-def deploy_check(kind, tmp):
-    """Steps 1-3 of ``deploy_phase`` for the ``kind`` artifact, in ``tmp``;
-    returns its record."""
-    import shutil
-
+def deploy_check(kind, tmp, altered=True):
+    """Steps 1-3 of ``deploy_phase`` for the ``kind`` artifact, in ``tmp``
+    (step 3 with ``altered``); returns its record."""
     import yaml
 
     from robot_mpcs_tpu_torch.examples import make_solver
@@ -1548,8 +1750,12 @@ def deploy_check(kind, tmp):
     stem = DEPLOY[kind]
     root = os.path.dirname(os.path.abspath(__file__))
     t = time.perf_counter()
-    path, first_s = make_solver.generate(os.path.join(root, "examples", "config", f"{kind}Mpc.yaml"),
-                                         os.path.join(tmp, "solvers"), "cuda")
+    config = os.path.join(root, "examples", "config", f"{kind}Mpc.yaml")
+    if kind == "mobilePanda":
+        config = os.path.join(tmp, "mobilePandaMpc.yaml")
+        with open(config, "w") as f:
+            yaml.safe_dump(mobile_panda_setup(), f)
+    path, first_s = make_solver.generate(config, os.path.join(tmp, "solvers"), "cuda")
     make_s = time.perf_counter() - t
     check(os.path.isfile(os.path.join(path, f"lib{stem}.so")), f"{kind}: no exported library")
     problem = MpcProblem.from_solver_dir(path)
@@ -1558,7 +1764,32 @@ def deploy_check(kind, tmp):
     check(loaded["libraries"] == {stem: os.path.abspath(os.path.join(path, f"lib{stem}.so"))},
           f"{kind}: the child loaded {loaded['libraries']}, not the artifact's library")
     check(not os.path.exists(cache) or not os.listdir(cache), f"{kind}: the child built a kernel")
-    # the same artifact with an altered fingerprint: declined, rebuilt
+    rec = {"deploy": kind, "make_solver_s": make_s, "make_solver_first_solve_s": first_s}
+    children = [("export", loaded)]
+    if altered:
+        children.append(("altered", altered_child(kind, path, stem, tmp)))
+    for label, child in children:
+        diff = float(np.abs(np.asarray(child["action"]) - parent[0]).max())
+        bar = solve_bar(problem, parent[2], child["iterations"])
+        rec[label] = {"action_diff": diff, "bar": bar, "flags": (parent[1], child["flag"]),
+                      "iterations": (parent[2], child["iterations"]),
+                      **{k: child[k] for k in ("cuda_init_s", "construct_s", "first_solve_s",
+                                               "second_solve_s", "process_s")}}
+        check(child["flag"] == parent[1] and parent[1] >= 0,
+              f"{kind} {label}: exit flags {(parent[1], child['flag'])} (parent, child)")
+        check(diff <= bar, f"{kind} {label}: the child's action differs by {diff:.3e} > {bar:.0e}")
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def altered_child(kind, path, stem, tmp):
+    """The artifact at ``path`` with an altered fingerprint, loaded by a
+    fresh process: declined with a warning, its kernel rebuilt from the
+    sources into an empty cache. Returns the child's record."""
+    import shutil
+
+    import yaml
+
     with open(os.path.join(path, "export_meta.yaml")) as f:
         meta = yaml.safe_load(f)
     altered = os.path.join(tmp, "altered", os.path.basename(path))
@@ -1571,19 +1802,7 @@ def deploy_check(kind, tmp):
           f"{kind}: the altered artifact was not declined with a warning: {rebuilt['warnings']}")
     check(os.path.dirname(rebuilt["libraries"].get(stem, "")) == cache,
           f"{kind}: the kernel was not rebuilt from the sources: {rebuilt['libraries']}")
-    rec = {"deploy": kind, "make_solver_s": make_s, "make_solver_first_solve_s": first_s}
-    for label, child in (("export", loaded), ("altered", rebuilt)):
-        diff = float(np.abs(np.asarray(child["action"]) - parent[0]).max())
-        bar = solve_bar(problem, parent[2], child["iterations"])
-        rec[label] = {"action_diff": diff, "bar": bar, "flags": (parent[1], child["flag"]),
-                      "iterations": (parent[2], child["iterations"]),
-                      **{k: child[k] for k in ("cuda_init_s", "construct_s", "first_solve_s",
-                                               "second_solve_s", "process_s")}}
-        check(child["flag"] == parent[1] and parent[1] >= 0,
-              f"{kind} {label}: exit flags {(parent[1], child['flag'])} (parent, child)")
-        check(diff <= bar, f"{kind} {label}: the child's action differs by {diff:.3e} > {bar:.0e}")
-    print(json.dumps(rec), flush=True)
-    return rec
+    return rebuilt
 
 
 def ros_ticks(device, ticks=8):
@@ -1613,16 +1832,17 @@ def ros_ticks(device, ticks=8):
 def deploy_phase(torch, rp, rb):
     """The solver artifact and the ROS node on the card:
 
-    1. ``make_solver`` writes the panda and boxer artifacts with their kernel
-       libraries into a temporary directory;
+    1. ``make_solver`` writes the panda, boxer and mobile-panda artifacts
+       with their kernel libraries (each compiled for its robot's shape)
+       into a temporary directory;
     2. a fresh process with ``nvcc`` unreachable loads each through
        ``MPCPlanner.from_solver_dir`` and solves the example's first step:
        the artifact's library is the one loaded, nothing is built, and the
        action equals this process's solve of the same inputs within
        ``solve_bar``;
-    3. an artifact whose ``export_meta.yaml`` was altered is declined with a
-       warning and the kernel is built from the sources (``nvcc`` into an
-       empty cache), the action again within ``solve_bar``;
+    3. (panda and boxer) an artifact whose ``export_meta.yaml`` was altered
+       is declined with a warning and the kernel is built from the sources
+       (``nvcc`` into an empty cache), the action again within ``solve_bar``;
     4. ``MpcRosLogic`` runs ``ros_ticks`` on the card and ends with a forward
        velocity above 0.05.
 
@@ -1631,8 +1851,8 @@ def deploy_phase(torch, rp, rb):
     import tempfile
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_deploy_")
-    for kind in DEPLOY:
-        deploy_check(kind, tmp)
+    for kind in DEPLOY:  # the mobile panda: export only (its own shape's library)
+        deploy_check(kind, tmp, altered=kind != "mobilePanda")
     shutil.rmtree(tmp)
 
     counters = {"riccati_backward_packed": rp.riccati_backward_packed,
@@ -1758,8 +1978,10 @@ def main() -> int:
     print(f"kernel phases done at {time.perf_counter() - t0:.1f} s", flush=True)
     panda, panda_scenario, packed["launches"], panda_state, panda_scen = path_phase(torch, rp)
     print(f"panda path done at {time.perf_counter() - t0:.1f} s", flush=True)
-    boxer, boxer_scenario, group_packed, batched["launches"] = group_phase(torch, rp, rb)
+    boxer, boxer_scenario, group_packed, group_batched = group_phase(torch, rp, rb)
     print(f"group path done at {time.perf_counter() - t0:.1f} s", flush=True)
+    batched["launches"] = mobile_phase(torch, rb)
+    print(f"mobile panda path done at {time.perf_counter() - t0:.1f} s", flush=True)
     planner_phase(torch, rp, rb)
     print(f"planner path done at {time.perf_counter() - t0:.1f} s", flush=True)
     examples = examples_phase(torch, rp, rb)
@@ -1768,6 +1990,7 @@ def main() -> int:
     print(f"deploy done at {time.perf_counter() - t0:.1f} s", flush=True)
     reference_phase(torch, "panda", panda, panda_scenario)
     reference_phase(torch, "boxer", boxer, boxer_scenario)
+    chain = chain_phase(torch, rp)
     print(f"card vs CPU done at {time.perf_counter() - t0:.1f} s", flush=True)
     sharded = distributed_phase(torch, rp, panda, panda_scenario)
     print(f"distributed path done at {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1778,10 +2001,12 @@ def main() -> int:
 
     # launches is the main path's count; each path's own beside it
     packed["launches_by_path"] = {"panda fleet": packed["launches"], "group": group_packed,
+                                  "6-dof chain (B=64)": chain,
                                   **sharded, **reference_form, **examples["riccati_backward_packed"],
                                   **deploy.get("riccati_backward_packed", {}),
                                   **bench["riccati_backward_packed"]}
-    batched["launches_by_path"] = {"group": batched["launches"], **examples["riccati_backward_batched"],
+    batched["launches_by_path"] = {"mobile panda fleet": batched["launches"], "group": group_batched,
+                                   **examples["riccati_backward_batched"],
                                    **deploy.get("riccati_backward_batched", {}),
                                    **bench["riccati_backward_batched"]}
     print(json.dumps({"kernels": [packed, batched]}), flush=True)

@@ -167,11 +167,14 @@ def _scenario_for(problem, b, spec_name, seed=0):
 
 
 def _build_kernels(problem, device) -> None:
-    """Build, or load from the kernel cache, the kernel library that the
-    problem's solve launches on the card, so that no timed step calls nvcc."""
+    """Build (one ``nvcc`` per shape, in parallel), or load from the kernel
+    cache, the kernel libraries that the problem's solve launches on the
+    card at its shape, so that no timed step calls nvcc."""
     if device.type == "cuda":
-        for stem in aot.kernel_stems(problem):
-            _build.load_library(stem)
+        kernels = aot.kernel_shapes(problem)
+        _build.build_libraries(kernels)
+        for stem, shape in kernels:
+            _build.load_library(stem, shape)
 
 
 def _sync(metrics, device) -> float:

@@ -26,33 +26,52 @@
 // stage's latency times N, hidden only by the lanes in flight; the fleet's
 // rescue tier runs boxer at B = 128.
 //
-// The design: a team of T threads per lane (T = 16 at NX <= 8, a warp at
-// NX=14), 128 / T lanes per 128-thread block. Per stage the team
+// The design: a team of T threads per lane (T = 16 at NX <= 8, a warp
+// above), up to 128 / T lanes per block. Per stage the team
 //   1. has the stage's block in shared memory already: copied with 4-byte
 //      cp.async by the whole team, consecutive threads on consecutive floats
-//      (coalesced), while the previous stages computed (three stage
+//      (coalesced), while the previous stages computed (DEPTH stage
 //      buffers), from the solver's (B, N, ...) tensors in place;
 //   2. forms W = V [A | B] and [qx | qw], entries spread over the team;
 //   3. forms Qxx = lxx + A^T W_A, Qxw = lxw + A^T W_B, Qww = lww + B^T W_B
 //      + reg I the same way;
-//   4. solves: threads 0..NX each factor Qww in registers and solve their
-//      own column of [qw | Qxw^T] (ldl_solve in riccati_common.cuh), then
-//      form their column of Qww Y;
+//   4. solves: each column of [qw | Qxw^T] is solved by one thread, which
+//      factors Qww in registers (ldl_solve in riccati_common.cuh) and forms
+//      its column of Qww Y; thread t takes columns t, t + T, ... (several
+//      where 1 + NX passes the team, NX >= 32 at T = 32);
 //   5. updates the value function, vx' and V's upper triangle spread over
 //      the team, each entry averaged with its transpose's.
 // Members synchronise with __syncwarp only (a team never spans two warps).
 // Batch-constant A and B (stride 0) are copied into shared memory once per
 // block for the whole horizon, before the stage loop (the block's one
-// __syncthreads); a horizon too long for shared memory is staged by each
-// team like per-lane dynamics. The stage buffers, carry and workspace are
-// ~3.4 KB of shared memory per boxer lane, so each thread holds a few
-// scalars and many teams fit on an SM to hide each other's latency.
+// __syncthreads), where they fit beside the block's lanes; a horizon that
+// does not is staged by each team like per-lane dynamics. The stage
+// buffers, carry and workspace are ~3.4 KB of shared memory per boxer lane,
+// so each thread holds a few scalars and many teams fit on an SM to hide
+// each other's latency.
+//
+// One shape per library: ops/_build.py compiles this file for the (NX, NW)
+// a solve asks for (-DRICCATI_NX, -DRICCATI_NW), with the team size T and
+// the number of stage buffers it chooses (-DRICCATI_T, -DRICCATI_DEPTH: 3
+// where a block of 128 / T lanes then stays within 48 KB, else 2), at first
+// use. Each lane's workspace is dynamic shared memory, after the horizon
+// block; the launcher puts as many lanes in a block as the card's opt-in
+// shared memory holds (227 KB on an H100), up to 128 / T. The largest
+// shapes one lane fits: NX = 68 on a diff-drive base (a 30-dof arm: NW =
+// 32, or 33 with slack; 55,692 / 56,336 of the 58,112 floats in 227 KB),
+// NX = 85 at NW = 8; registers spill long before (ldl_solve keeps NW x NW
+// in registers).
 //
 // No tensor cores: the sweep computes in full f32 (the solver's ground rule:
 // lower-precision products stalled convergence), mma/wgmma would be TF32 or
 // lower, and a lane's matrices (8 x 8) are far below a 64-row tile.
 
 #include "riccati_common.cuh"
+
+#if !defined(RICCATI_NX) || !defined(RICCATI_NW) || !defined(RICCATI_T) || \
+    !defined(RICCATI_DEPTH)
+#error "compile with the shape defines that ops/_build.py passes"
+#endif
 
 namespace {
 
@@ -74,7 +93,7 @@ struct GeneralLayout {
                        QV = Q + NV * WS, Y = QV + NV, QY = Y + NW * M, FLOATS = QY + NW * M;
 };
 
-template <int NX, int NW, int T>
+template <int NX, int NW, int T, int DEPTH>
 __global__ void __launch_bounds__(kBlockThreads) riccati_batched_kernel(
     const float* __restrict__ lx, const float* __restrict__ lw,
     const float* __restrict__ lxx, const float* __restrict__ lxw,
@@ -83,26 +102,26 @@ __global__ void __launch_bounds__(kBlockThreads) riccati_batched_kernel(
     float* __restrict__ kff, float* __restrict__ Kout,
     unsigned char* __restrict__ failed, int B, int N, long long a_stride,
     long long b_stride, int shared_ab) {
-  // stage buffers: stages k-1 and k-2 in flight while stage k computes,
-  // unless three pass the 48 KB of static shared memory ((14, 7)); three
-  // measured faster than two at boxer's shapes, four no faster than three
-  constexpr int DEPTH =
-      kBlockThreads / T * GeneralLayout<NX, NW, 3>::FLOATS * 4 <= 48 * 1024 ? 3 : 2;
+  // DEPTH stage buffers: stages k-1 .. k-DEPTH+1 in flight while stage k
+  // computes (three measured faster than two at boxer's shapes, four no
+  // faster than three)
   using Lay = GeneralLayout<NX, NW, DEPTH>;
   constexpr int M = Lay::M;  // rhs columns of the stage solve: [qw | Qxw^T]
   constexpr int NV = Lay::NV;
-  constexpr int LANES = kBlockThreads / T;
   constexpr int VS = Lay::VS, WS = Lay::WS;
-  static_assert(32 % T == 0 && M <= T, "a team within one warp, a thread per solve column");
+  static_assert(32 % T == 0, "a team within one warp");
 
-  // with shared_ab: A (N, NX, NX) then B (N, NX, NW), once per block
-  extern __shared__ float horizon[];
-  __shared__ float smem[LANES * Lay::FLOATS];
+  // with shared_ab: A (N, NX, NX) then B (N, NX, NW), once per block; then
+  // the block's lanes, Lay::FLOATS floats each
+  extern __shared__ float smem[];
+  float* horizon = smem;
+  const int lanes = blockDim.x / T;
   const int t = threadIdx.x % T;
-  const int lane = blockIdx.x * LANES + threadIdx.x / T;
+  const int lane = blockIdx.x * lanes + threadIdx.x / T;
   const bool live = lane < B;
   const int b = live ? lane : B - 1;  // a team past the batch mirrors the last lane, stores nothing
-  float* sm = smem + (threadIdx.x / T) * Lay::FLOATS;
+  float* sm = smem + (shared_ab ? static_cast<size_t>(N) * (NX * NX + NX * NW) : 0) +
+              (threadIdx.x / T) * Lay::FLOATS;
   float* V = sm + Lay::V;
   float* vx = sm + Lay::VX;
   float* W = sm + Lay::W;
@@ -131,9 +150,9 @@ __global__ void __launch_bounds__(kBlockThreads) riccati_batched_kernel(
   for (int e = t; e < NX; e += T) vx[e] = 0.f;
   const float r = reg[b];
   if (shared_ab) {
-    for (int e = threadIdx.x; e < N * NX * NX; e += kBlockThreads) cp_async4(horizon + e, A + e);
+    for (int e = threadIdx.x; e < N * NX * NX; e += blockDim.x) cp_async4(horizon + e, A + e);
     float* hB = horizon + static_cast<size_t>(N) * NX * NX;
-    for (int e = threadIdx.x; e < N * NX * NW; e += kBlockThreads) cp_async4(hB + e, Bm + e);
+    for (int e = threadIdx.x; e < N * NX * NW; e += blockDim.x) cp_async4(hB + e, Bm + e);
   }
 #pragma unroll
   for (int j = 1; j <= DEPTH; ++j) {
@@ -207,28 +226,32 @@ __global__ void __launch_bounds__(kBlockThreads) riccati_batched_kernel(
     }
     __syncwarp();
 
-    // 3. the stage solve of column t of [qw | Qxw^T] (gains zero for a failed
-    //    stage; every solving thread sees the same pivots), then column t of
-    //    Qww Y
+    // 3. the stage solve of columns t, t + T, ... of [qw | Qxw^T] (gains
+    //    zero for a failed stage; every solving thread sees the same
+    //    pivots), then the same columns of Qww Y
     const float* QWW = Q + NX * WS + NX;
     float bad = 0.f;
-    if (t < M) {
-      float y[NW];
 #pragma unroll
-      for (int w = 0; w < NW; ++w) y[w] = t == 0 ? QV[NX + w] : Q[(t - 1) * WS + NX + w];
-      bad = ldl_solve<NW, true>(QWW, WS, y);
-      const float good = 1.f - bad;
+    for (int q = 0; q < ceil_div(M, T); ++q) {
+      const int c = t + q * T;
+      if (c < M) {
+        float y[NW];
 #pragma unroll
-      for (int w = 0; w < NW; ++w) {
-        y[w] = -y[w] * good;
-        Y[w * M + t] = y[w];
-      }
+        for (int w = 0; w < NW; ++w) y[w] = c == 0 ? QV[NX + w] : Q[(c - 1) * WS + NX + w];
+        bad = ldl_solve<NW, true>(QWW, WS, y);
+        const float good = 1.f - bad;
 #pragma unroll
-      for (int v = 0; v < NW; ++v) {
-        float acc = QWW[v * WS] * y[0];
+        for (int w = 0; w < NW; ++w) {
+          y[w] = -y[w] * good;
+          Y[w * M + c] = y[w];
+        }
 #pragma unroll
-        for (int p = 1; p < NW; ++p) acc = acc + QWW[v * WS + p] * y[p];
-        QY[v * M + t] = acc;
+        for (int v = 0; v < NW; ++v) {
+          float acc = QWW[v * WS] * y[0];
+#pragma unroll
+          for (int p = 1; p < NW; ++p) acc = acc + QWW[v * WS + p] * y[p];
+          QY[v * M + c] = acc;
+        }
       }
     }
     lane_bad = fmaxf(lane_bad, bad);
@@ -291,35 +314,30 @@ __global__ void __launch_bounds__(kBlockThreads) riccati_batched_kernel(
   if (live && t == 0) failed[b] = lane_bad > 0.5f ? 1 : 0;
 }
 
-template <int NX, int NW, int T>
+template <int NX, int NW, int T, int DEPTH>
 int launch(const float* lx, const float* lw, const float* lxx, const float* lxw,
            const float* lww, const float* A, const float* Bm, const float* reg,
            float* kff, float* K, unsigned char* failed, int B, int N,
            long long a_stride, long long b_stride, cudaStream_t stream) {
-  auto kernel = riccati_batched_kernel<NX, NW, T>;
-  // dynamic shared memory a block may take beside its static part, raised
-  // once from the default 48 KB to the card's opt-in maximum
-  static const int dynamic_limit = [&] {
-    int dev = 0, optin = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    cudaFuncAttributes attr;
-    cudaFuncGetAttributes(&attr, kernel);
-    const int limit = optin - static_cast<int>(attr.sharedSizeBytes);
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
-    return limit;
-  }();
+  auto kernel = riccati_batched_kernel<NX, NW, T, DEPTH>;
+  static const int limit = dynamic_shared_limit(kernel);
+  constexpr size_t lane_bytes = GeneralLayout<NX, NW, DEPTH>::FLOATS * sizeof(float);
+  const int lanes = lanes_per_block(T, lane_bytes, 0, limit);
+  if (lanes == 0) return kNoRoom;
+  // batch-constant A and B are shared by the block where they fit beside
+  // its lanes (never at the cost of a lane)
   size_t horizon = 0;
   if (a_stride == 0 && b_stride == 0) {
     horizon = static_cast<size_t>(N) * (NX * NX + NX * NW) * sizeof(float);
-    if (horizon > static_cast<size_t>(dynamic_limit)) horizon = 0;
+    if (lanes_per_block(T, lane_bytes, horizon, limit) < lanes) horizon = 0;
   }
-  const int blocks = ceil_div(B, kBlockThreads / T);
-  kernel<<<blocks, kBlockThreads, horizon, stream>>>(
+  kernel<<<ceil_div(B, lanes), lanes * T, horizon + lanes * lane_bytes, stream>>>(
       lx, lw, lxx, lxw, lww, A, Bm, reg, kff, K, failed, B, N, a_stride, b_stride,
       horizon > 0);
   return static_cast<int>(cudaGetLastError());
 }
+
+using Shape = GeneralLayout<RICCATI_NX, RICCATI_NW, RICCATI_DEPTH>;
 
 }  // namespace
 
@@ -327,23 +345,20 @@ int launch(const float* lx, const float* lw, const float* lxx, const float* lxw,
 // contiguous f32 tensors: the (B, N, ...) stage blocks, A and Bm with the
 // given batch strides in floats (0 = one (N, ...) block shared by every
 // lane), reg (B,), and a (B,) bool `failed`. Returns cudaGetLastError()
-// after the launch, or -1 (no cudaError_t value) for an (nx, nw) with no
-// instantiation: the RICCATI_CASE lines below are the one list of shapes the
-// kernel supports, each with its team size T.
+// after the launch; kNoInstantiation for an (nx, nw) other than the one this
+// library was compiled for; kNoRoom where not one lane's workspace fits the
+// card's shared memory.
 extern "C" int riccati_batched_launch(
     const float* lx, const float* lw, const float* lxx, const float* lxw,
     const float* lww, const float* A, const float* Bm, const float* reg,
     float* kff, float* K, unsigned char* failed, int B, int N, int nx, int nw,
     long long a_stride, long long b_stride, cudaStream_t stream) {
+  if (nx != RICCATI_NX || nw != RICCATI_NW) return kNoInstantiation;
   if (B == 0 || N == 0) return 0;
-#define RICCATI_CASE(NX_, NW_, T_)                                              \
-  if (nx == NX_ && nw == NW_)                                                  \
-    return launch<NX_, NW_, T_>(lx, lw, lxx, lxw, lww, A, Bm, reg, kff, K, failed, \
-                                B, N, a_stride, b_stride, stream);
-  RICCATI_CASE(6, 3, 16)   // pointRobot-sized test dims
-  RICCATI_CASE(14, 7, 32)  // panda-sized test dims
-  RICCATI_CASE(8, 2, 16)   // boxer
-  RICCATI_CASE(8, 3, 16)   // boxer with slack
-#undef RICCATI_CASE
-  return -1;
+  return launch<RICCATI_NX, RICCATI_NW, RICCATI_T, RICCATI_DEPTH>(
+      lx, lw, lxx, lxw, lww, A, Bm, reg, kff, K, failed, B, N, a_stride, b_stride, stream);
 }
+
+// Bytes of shared memory one lane takes (ops/_build.py computes the same
+// before it builds a library, and the tests hold the two equal)
+extern "C" int riccati_batched_lane_bytes() { return Shape::FLOATS * sizeof(float); }

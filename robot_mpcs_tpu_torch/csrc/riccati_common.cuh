@@ -9,8 +9,14 @@
 namespace riccati {
 
 constexpr float kPivotTiny = 1e-12f;
-// threads per block; a block holds kBlockThreads / T lanes of T threads each
+// threads per block at most; a block holds up to kBlockThreads / T lanes of
+// T threads each, fewer where their shared memory does not fit (lanes_per_block)
 constexpr int kBlockThreads = 128;
+// what a launcher returns besides a cudaError_t (ops/_build.py reads them):
+// called with a shape other than the one its library was compiled for, or a
+// shape of which not one lane's shared memory fits a block
+constexpr int kNoInstantiation = -1;
+constexpr int kNoRoom = -2;
 
 __host__ __device__ constexpr int ceil_div(int a, int b) { return (a + b - 1) / b; }
 // an odd row stride: a team walking one column down the rows of a matrix in
@@ -31,6 +37,26 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int PENDING>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// The shared memory a block of `kernel` may have, in bytes: the card's
+// opt-in maximum (227 KB on an H100), all of which `kernel` is allowed to
+// take as dynamic shared memory. Call once per kernel (a static).
+template <class Kernel>
+int dynamic_shared_limit(Kernel kernel) {
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  return optin;
+}
+
+// Lanes per block: kBlockThreads / T, or as many as `limit` bytes of shared
+// memory hold beside `fixed` bytes, if fewer; 0 if not one lane fits.
+inline int lanes_per_block(int T, size_t lane_bytes, size_t fixed, int limit) {
+  if (fixed + lane_bytes > static_cast<size_t>(limit)) return 0;
+  const size_t fit = (static_cast<size_t>(limit) - fixed) / lane_bytes;
+  return fit < static_cast<size_t>(kBlockThreads / T) ? static_cast<int>(fit) : kBlockThreads / T;
 }
 
 // Thread t of a team of T copies floats t, t + T, ... of a contiguous block
@@ -68,9 +94,10 @@ __device__ __forceinline__ void lower_entry(int e, int& r, int& c) {
 // TPU kernels do: a pivot d <= kPivotTiny (false for NaN too) is replaced by
 // d * 0 + 1 and the solve is marked bad. Qww's lower triangle is read from
 // shared memory with row stride QS. Every solving thread of a team factors
-// Qww itself, in registers: NW <= 8 makes that ~100 FMAs with no barrier,
-// where a factorization shared by the team would cost a barrier and a
-// shared-memory round trip per pivot. The back substitution multiplies by
+// Qww itself, in registers: at NW <= 9 that is ~100-250 FMAs with no
+// barrier, where a factorization shared by the team would cost a barrier
+// and a shared-memory round trip per pivot. (A thread with several
+// columns, where 1 + NX passes the team, factors once per column.) The back substitution multiplies by
 // 1/d (DIVIDE false, the structured kernel) or divides by d (DIVIDE true,
 // the general one), as each TPU kernel does. Returns 1.f if bad, else 0.f.
 template <int NW, bool DIVIDE>

@@ -24,8 +24,8 @@
 // stage times N, hidden only by how many lanes are in flight. The fleet's
 // rescue tier runs most launches at B = 512 (panda) or 128 (pointRobot).
 //
-// The design: a team of T threads per lane (T = 32, a warp, at NX=14; 16 at
-// NX=6), 128 / T lanes per 128-thread block. Per stage the team
+// The design: a team of T threads per lane (T = 32, a warp, at NX > 8; 16
+// at NX <= 8), up to 128 / T lanes per block. Per stage the team
 //   1. has the stage's block in shared memory already: it was copied there
 //      with 4-byte cp.async by the whole team, consecutive threads on
 //      consecutive floats (coalesced), while the previous stage computed
@@ -33,10 +33,14 @@
 //      place: no repacking, no padding.
 //   2. assembles: thread 0 builds qw, threads 1..NX each one row of Qxw (the
 //      right-hand columns [qw | Qxw^T] of the solve), the others the lower
-//      triangle of Qww, all from the carry V, vx in shared memory.
-//   3. solves: threads 0..NX each factor Qww in registers and solve their
-//      own column (ldl_solve in riccati_common.cuh); the gains go to
-//      shared memory, then out to device memory coalesced.
+//      triangle of Qww, all from the carry V, vx in shared memory. Where
+//      1 + NX >= T (NX >= 32 at T = 32) no thread is left for Qww: the
+//      team then assembles the 1 + NX columns and Qww's entries spread
+//      over it, and solves after a barrier.
+//   3. solves: each column of [qw | Qxw^T] is solved by one thread, which
+//      factors Qww in registers (ldl_solve in riccati_common.cuh); thread t
+//      takes columns t, t + T, ... The gains go to shared memory, then out
+//      to device memory coalesced.
 //   4. updates the value function, the NX + NX(NX+1)/2 entries of vx' and
 //      V's upper triangle spread over the team, Qxx formed on the fly.
 // Members synchronise with __syncwarp only (a team never spans two warps).
@@ -46,11 +50,26 @@
 // block per SM at least: without that, ptxas held (14, 8, 1) to 128
 // registers and spilled.
 //
+// One shape per library: ops/_build.py compiles this file for the (NX, NW,
+// NS) a solve asks for (-DRICCATI_NX, -DRICCATI_NW, -DRICCATI_NS), with the
+// team size T and the number of stage buffers it chooses (-DRICCATI_T,
+// -DRICCATI_DEPTH), at first use. Each lane's workspace is dynamic shared
+// memory; the launcher puts as many lanes in a block as the card's opt-in
+// shared memory holds (227 KB on an H100), up to 128 / T. The largest shape
+// one lane fits: n = 49 (NX = 98, NW = 49, or 50 with slack: 55,762 / 56,552
+// of the 58,112 floats in 227 KB), far past any arm; registers spill long
+// before (ldl_solve keeps NW x NW in registers).
+//
 // No tensor cores: the sweep computes in full f32 (the solver's ground rule:
 // lower-precision products stalled convergence), mma/wgmma would be TF32 or
 // lower, and a lane's matrices (14 x 7) are far below a 64-row tile.
 
 #include "riccati_common.cuh"
+
+#if !defined(RICCATI_NX) || !defined(RICCATI_NW) || !defined(RICCATI_NS) || \
+    !defined(RICCATI_T) || !defined(RICCATI_DEPTH)
+#error "compile with the shape defines that ops/_build.py passes"
+#endif
 
 namespace {
 
@@ -70,7 +89,7 @@ struct PackedLayout {
                        Y = QWW + NW * NW, FLOATS = Y + NW * M;
 };
 
-template <int NX, int NW, int NS, int T>
+template <int NX, int NW, int NS, int T, int DEPTH>
 __global__ void __launch_bounds__(kBlockThreads, 1) riccati_packed_kernel(
     const float* __restrict__ lx, const float* __restrict__ lw,
     const float* __restrict__ lxx, const float* __restrict__ lxw,
@@ -78,22 +97,23 @@ __global__ void __launch_bounds__(kBlockThreads, 1) riccati_packed_kernel(
     float* __restrict__ kff, float* __restrict__ Kout,
     unsigned char* __restrict__ failed, int B, int N, float a, float b1,
     float b2) {
-  // stage buffers: stage k-1 is in flight while stage k computes (a deeper
-  // ring measured no faster: a stage's latency is its own arithmetic)
-  constexpr int DEPTH = 2;
+  // DEPTH stage buffers: stages k-1 .. k-DEPTH+1 in flight while stage k
+  // computes (ops/_build.py takes 2: a deeper ring measured no faster, a
+  // stage's latency is its own arithmetic)
   using Lay = PackedLayout<NX, NW, DEPTH>;
   constexpr int n = NX / 2;
   constexpr int NU = NW - NS;
   constexpr int M = Lay::M;  // rhs columns of the stage solve: [qw | Qxw^T]
-  constexpr int LANES = kBlockThreads / T;
+  constexpr int NQ = NW * (NW + 1) / 2;  // Qww's lower triangle
   constexpr int VS = Lay::VS, QS = Lay::QS;
   static_assert(NX % 2 == 0, "holonomic state is [q, qdot]");
   static_assert(NU == n, "one control per configuration dof");
-  static_assert(32 % T == 0 && M < T, "a team within one warp, with threads beyond the solve's");
+  static_assert(32 % T == 0, "a team within one warp");
 
-  __shared__ float smem[LANES * Lay::FLOATS];
+  extern __shared__ float smem[];  // the block's lanes, Lay::FLOATS floats each
+  const int lanes = blockDim.x / T;
   const int t = threadIdx.x % T;
-  const int lane = blockIdx.x * LANES + threadIdx.x / T;
+  const int lane = blockIdx.x * lanes + threadIdx.x / T;
   const bool live = lane < B;
   const int b = live ? lane : B - 1;  // a team past the batch mirrors the last lane, stores nothing
   float* sm = smem + (threadIdx.x / T) * Lay::FLOATS;
@@ -135,18 +155,17 @@ __global__ void __launch_bounds__(kBlockThreads, 1) riccati_packed_kernel(
     // U = V B (control columns): U[i][c] = b1 V[i][c] + b2 V[i][n+c]
     auto U = [&](int i, int c) { return b1 * V[i * VS + c] + b2 * V[i * VS + n + c]; };
 
-    // 1. assembly. Thread 0: qw = lw + B^T vx. Thread 1 + i: row i of
-    //    Qxw = lxw + A^T U (slack columns: lxw only), kept for the value
-    //    update. Threads M..T-1: the lower triangle of Qww = lww + B^T U +
-    //    reg I (slack rows/columns: lww only; reg on all NW).
-    float y[NW];
-    if (t == 0) {
+    // the assembly's three kinds of work: qw = lw + B^T vx; row i of Qxw =
+    // lxw + A^T U (slack columns: lxw only), kept for the value update;
+    // entry e of the lower triangle of Qww = lww + B^T U + reg I (slack
+    // rows/columns: lww only; reg on all NW)
+    auto assemble_qw = [&](float (&y)[NW]) {
 #pragma unroll
       for (int w = 0; w < NW; ++w) y[w] = LW[w];
 #pragma unroll
       for (int c = 0; c < NU; ++c) y[NS + c] = y[NS + c] + b1 * vx[c] + b2 * vx[n + c];
-    } else if (t < M) {
-      const int i = t - 1;
+    };
+    auto assemble_qxw_row = [&](int i, float (&y)[NW]) {
 #pragma unroll
       for (int c = 0; c < NS; ++c) y[c] = LXW[i * NW + c];
 #pragma unroll
@@ -155,32 +174,76 @@ __global__ void __launch_bounds__(kBlockThreads, 1) riccati_packed_kernel(
                           : LXW[i * NW + NS + c] + a * U(i - n, c) + U(i, c);
 #pragma unroll
       for (int w = 0; w < NW; ++w) QXW[i * QS + w] = y[w];
-    } else {
-      constexpr int NQ = NW * (NW + 1) / 2;
+    };
+    auto assemble_qww_entry = [&](int e) {
+      int i, c;
+      lower_entry<NW>(e, i, c);
+      float v = LWW[i * NW + c];
+      if (i >= NS && c >= NS) v = v + (b1 * U(i - NS, c - NS) + b2 * U(n + i - NS, c - NS));
+      if (i == c) v = v + r;
+      QWW[i * NW + c] = v;
+    };
+
+    float y[NW];
+    float bad = 0.f;
+    if constexpr (M < T) {
+      // 1. assembly: thread 0 qw, thread 1 + i row i of Qxw (each its own
+      //    rhs column, kept in registers for the solve), threads M..T-1
+      //    the lower triangle of Qww
+      if (t == 0) {
+        assemble_qw(y);
+      } else if (t < M) {
+        assemble_qxw_row(t - 1, y);
+      } else {
 #pragma unroll
-      for (int q = 0; q < ceil_div(NQ, T - M); ++q) {
-        const int e = t - M + q * (T - M);
-        if (e < NQ) {
-          int i, c;
-          lower_entry<NW>(e, i, c);
-          float v = LWW[i * NW + c];
-          if (i >= NS && c >= NS)
-            v = v + (b1 * U(i - NS, c - NS) + b2 * U(n + i - NS, c - NS));
-          if (i == c) v = v + r;
-          QWW[i * NW + c] = v;
+        for (int q = 0; q < ceil_div(NQ, T - M); ++q) {
+          const int e = t - M + q * (T - M);
+          if (e < NQ) assemble_qww_entry(e);
         }
       }
-    }
-    __syncwarp();
+      __syncwarp();
 
-    // 2. the stage solve: gains k_ff = Y[:, 0], K = Y[:, 1:] (zero for a
-    //    failed stage). Every solving thread sees the same pivots.
-    float bad = 0.f;
-    if (t < M) {
-      bad = ldl_solve<NW, false>(QWW, NW, y);
-      const float good = 1.f - bad;
+      // 2. the stage solve: gains k_ff = Y[:, 0], K = Y[:, 1:] (zero for a
+      //    failed stage). Every solving thread sees the same pivots.
+      if (t < M) {
+        bad = ldl_solve<NW, false>(QWW, NW, y);
+        const float good = 1.f - bad;
 #pragma unroll
-      for (int w = 0; w < NW; ++w) Y[w * M + t] = -y[w] * good;
+        for (int w = 0; w < NW; ++w) Y[w * M + t] = -y[w] * good;
+      }
+    } else {
+      // 1. assembly with no thread to spare beside the rhs columns: the M
+      //    columns (qw parked in Y's column 0) and then Qww's entries,
+      //    spread over the team
+#pragma unroll
+      for (int q = 0; q < ceil_div(M + NQ, T); ++q) {
+        const int e = t + q * T;
+        if (e == 0) {
+          assemble_qw(y);
+#pragma unroll
+          for (int w = 0; w < NW; ++w) Y[w * M] = y[w];
+        } else if (e < M) {
+          assemble_qxw_row(e - 1, y);
+        } else if (e < M + NQ) {
+          assemble_qww_entry(e - M);
+        }
+      }
+      __syncwarp();
+
+      // 2. the stage solve, columns t, t + T, ... (each thread reads its
+      //    column before it writes it)
+#pragma unroll
+      for (int q = 0; q < ceil_div(M, T); ++q) {
+        const int c = t + q * T;
+        if (c < M) {
+#pragma unroll
+          for (int w = 0; w < NW; ++w) y[w] = c == 0 ? Y[w * M] : QXW[(c - 1) * QS + w];
+          bad = ldl_solve<NW, false>(QWW, NW, y);
+          const float good = 1.f - bad;
+#pragma unroll
+          for (int w = 0; w < NW; ++w) Y[w * M + c] = -y[w] * good;
+        }
+      }
     }
     lane_bad = fmaxf(lane_bad, bad);
     __syncwarp();
@@ -238,38 +301,41 @@ __global__ void __launch_bounds__(kBlockThreads, 1) riccati_packed_kernel(
   if (live && t == 0) failed[b] = lane_bad > 0.5f ? 1 : 0;
 }
 
-template <int NX, int NW, int NS, int T>
+template <int NX, int NW, int NS, int T, int DEPTH>
 int launch(const float* lx, const float* lw, const float* lxx, const float* lxw,
            const float* lww, const float* reg, float* kff, float* K,
            unsigned char* failed, int B, int N, float a, float b1, float b2,
            cudaStream_t stream) {
-  const int blocks = ceil_div(B, kBlockThreads / T);
-  riccati_packed_kernel<NX, NW, NS, T><<<blocks, kBlockThreads, 0, stream>>>(
+  auto kernel = riccati_packed_kernel<NX, NW, NS, T, DEPTH>;
+  static const int limit = dynamic_shared_limit(kernel);
+  constexpr size_t lane_bytes = PackedLayout<NX, NW, DEPTH>::FLOATS * sizeof(float);
+  const int lanes = lanes_per_block(T, lane_bytes, 0, limit);
+  if (lanes == 0) return kNoRoom;
+  kernel<<<ceil_div(B, lanes), lanes * T, lanes * lane_bytes, stream>>>(
       lx, lw, lxx, lxw, lww, reg, kff, K, failed, B, N, a, b1, b2);
   return static_cast<int>(cudaGetLastError());
 }
+
+using Shape = PackedLayout<RICCATI_NX, RICCATI_NW, RICCATI_DEPTH>;
 
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). Pointers are device pointers to
 // contiguous f32 (B, N, ...) tensors; `failed` is a (B,) bool tensor. Returns
-// cudaGetLastError() after the launch, or -1 (no cudaError_t value) for a
-// (nx, nw, ns) with no instantiation: the RICCATI_CASE lines below are the
-// one list of shapes the kernel supports, each with its team size T.
+// cudaGetLastError() after the launch; kNoInstantiation for an (nx, nw, ns)
+// other than the one this library was compiled for; kNoRoom where not one
+// lane's workspace fits the card's shared memory.
 extern "C" int riccati_packed_launch(
     const float* lx, const float* lw, const float* lxx, const float* lxw,
     const float* lww, const float* reg, float* kff, float* K,
     unsigned char* failed, int B, int N, int nx, int nw, int ns, float a,
     float b1, float b2, cudaStream_t stream) {
+  if (nx != RICCATI_NX || nw != RICCATI_NW || ns != RICCATI_NS) return kNoInstantiation;
   if (B == 0 || N == 0) return 0;
-#define RICCATI_CASE(NX_, NW_, NS_, T_)                                            \
-  if (nx == NX_ && nw == NW_ && ns == NS_)                                        \
-    return launch<NX_, NW_, NS_, T_>(lx, lw, lxx, lxw, lww, reg, kff, K, failed, B, \
-                                     N, a, b1, b2, stream);
-  RICCATI_CASE(6, 3, 0, 16)   // pointRobot
-  RICCATI_CASE(6, 4, 1, 16)   // pointRobot with slack
-  RICCATI_CASE(14, 7, 0, 32)  // panda
-  RICCATI_CASE(14, 8, 1, 32)  // panda with slack
-#undef RICCATI_CASE
-  return -1;
+  return launch<RICCATI_NX, RICCATI_NW, RICCATI_NS, RICCATI_T, RICCATI_DEPTH>(
+      lx, lw, lxx, lxw, lww, reg, kff, K, failed, B, N, a, b1, b2, stream);
 }
+
+// Bytes of shared memory one lane takes (ops/_build.py computes the same
+// before it builds a library, and the tests hold the two equal)
+extern "C" int riccati_packed_lane_bytes() { return Shape::FLOATS * sizeof(float); }

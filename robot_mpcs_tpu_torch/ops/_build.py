@@ -1,20 +1,26 @@
 """Build, load and call the port's hand-written CUDA kernels.
 
-Each ``csrc/*.cu`` source has a plain C entry point. ``load_library``
-compiles it with ``nvcc`` for ``sm_90a`` on first use into the kernel cache
-(``utils/compile_cache.py``: ``$ROBOT_MPCS_TPU_CACHE``, else
-``build/robot_mpcs_tpu_torch/`` beside the package), under a name that hashes
-the source and the headers it includes (``csrc/riccati_common.cuh``), the
-nvcc flags and ``nvcc --version``, and loads it with ``ctypes``. A library
-exported with a solver artifact (``utils/aot.py``) is registered instead
-(``register_library``), and then no ``nvcc`` is needed. A missing ``nvcc`` or
-a failed build raises: no wrapper falls back to its plain version for a CUDA
-tensor.
+Each ``csrc/*.cu`` source has a plain C entry point and is compiled for one
+problem shape at a time: ``load_library(stem, shape)`` compiles it with
+``nvcc`` for ``sm_90a`` at the first use of that shape, with the shape, the
+team size and the number of stage buffers as ``-D`` defines (``defines``),
+into the kernel cache (``utils/compile_cache.py``: ``$ROBOT_MPCS_TPU_CACHE``,
+else ``build/robot_mpcs_tpu_torch/`` beside the package), under a name that
+hashes the source and the headers it includes (``csrc/riccati_common.cuh``),
+the nvcc flags, the defines and ``nvcc --version``, and loads it with
+``ctypes``. A shape built once is loaded from the cache. A library exported
+with a solver artifact (``utils/aot.py``) is registered instead
+(``register_library``), and then no ``nvcc`` is needed. A missing ``nvcc``, a
+failed build, or a shape of which one lane's shared memory does not fit a
+block (``check_fits``) raises: no wrapper falls back to its plain version or
+to the scan for a CUDA tensor.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -34,10 +40,89 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-#: what a launcher returns for a shape the source does not instantiate
+#: what a launcher returns for a shape other than its library's
 NO_INSTANTIATION = -1
+#: ... and for a shape of which not one lane fits a block's shared memory
+NO_ROOM = -2
+#: the shape fields each source is compiled for, in the order of its
+#: launcher's arguments (``-DRICCATI_<FIELD>``)
+SHAPE_FIELDS = {"riccati_packed": ("nx", "nw", "ns"), "riccati_batched": ("nx", "nw")}
+#: the shared memory a block may have on an sm_90 card (H100, H200), the
+#: opt-in maximum: the libraries are built for sm_90a only
+SM90_SHARED_OPTIN = 232448
 
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[Tuple[str, tuple], ctypes.CDLL] = {}
+
+
+def team_size(nx: int) -> int:
+    """Threads per lane, T: 16 at nx <= 8, else a warp."""
+    return 16 if nx <= 8 else 32
+
+
+def lane_floats(stem: str, shape, depth: int) -> int:
+    """Floats of shared memory one lane of ``csrc/<stem>.cu`` takes with
+    ``depth`` stage buffers: the ``PackedLayout`` / ``GeneralLayout`` of the
+    source (its exported ``<stem>_lane_bytes`` is held equal by the tests)."""
+    nx, nw = shape[0], shape[1]
+    m = 1 + nx
+
+    def odd(x):  # an odd row stride (riccati_common.cuh)
+        return x | 1
+
+    if stem == "riccati_packed":
+        stage = nx + nw + nx * nx + nx * nw + nw * nw
+        return depth * stage + nx * odd(nx) + nx + nx * odd(nw) + nw * nw + nw * m
+    nv = nx + nw
+    stage = nx + nw + 2 * nx * nx + 2 * nx * nw + nw * nw
+    return depth * stage + nx * odd(nx) + nx + (nx + nv) * odd(nv) + nv + 2 * nw * m
+
+
+def stage_depth(stem: str, shape) -> int:
+    """Stage buffers per lane. The structured sweep: 2 (a deeper ring
+    measured no faster). The general one: 3 where a block of 128 / T lanes
+    then stays within 48 KB (faster than 2 at boxer's shapes), else 2."""
+    if stem == "riccati_packed":
+        return 2
+    lanes = 128 // team_size(shape[0])
+    return 3 if lanes * lane_floats(stem, shape, 3) * 4 <= 48 * 1024 else 2
+
+
+def check_shape(stem: str, shape) -> tuple:
+    """``shape`` as a tuple of ints for ``csrc/<stem>.cu``'s fields; raises
+    for one the kernel does not take."""
+    shape = tuple(int(v) for v in shape)
+    fields = SHAPE_FIELDS[stem]
+    if len(shape) != len(fields) or min(shape[:2]) < 1:
+        raise ValueError(f"{stem}: shape {fields} = {shape} is not a kernel shape")
+    if stem == "riccati_packed":
+        nx, nw, ns = shape
+        if ns not in (0, 1) or nx % 2 or nw != nx // 2 + ns:
+            raise ValueError(
+                f"{stem}: (nx, nw, ns) = {shape} is not a holonomic shape "
+                f"(nx = 2n, nw = n + ns, ns in (0, 1))"
+            )
+    return shape
+
+
+def defines(stem: str, shape) -> List[str]:
+    """The ``-D`` flags that compile ``csrc/<stem>.cu`` for ``shape``."""
+    shape = check_shape(stem, shape)
+    values = dict(zip(SHAPE_FIELDS[stem], shape))
+    values.update(t=team_size(shape[0]), depth=stage_depth(stem, shape))
+    return [f"-DRICCATI_{k.upper()}={v}" for k, v in values.items()]
+
+
+def check_fits(stem: str, shape) -> None:
+    """Raise unless one lane's shared memory at ``shape`` fits a block of an
+    sm_90 card."""
+    need = 4 * lane_floats(stem, shape, stage_depth(stem, shape))
+    limit = SM90_SHARED_OPTIN
+    if need > limit:
+        raise ValueError(
+            f"csrc/{stem}.cu: one lane at {SHAPE_FIELDS[stem]} = {tuple(shape)} needs {need} bytes "
+            f"of shared memory, more than the {limit} a block may have; solve it with "
+            f'riccati_backend="scan"'
+        )
 
 
 def build_dir() -> Path:
@@ -59,6 +144,13 @@ def nvcc() -> str:
     )
 
 
+@functools.lru_cache(maxsize=None)
+def nvcc_version(compiler: str) -> str:
+    """``compiler --version``, asked once per process (part of each
+    library's name)."""
+    return subprocess.run([compiler, "--version"], capture_output=True, text=True, check=True).stdout
+
+
 def source_files(source: Path) -> List[Path]:
     """``source`` and every file it includes with ``#include "..."``, found
     beside the including file, each once, in the order first reached."""
@@ -73,34 +165,41 @@ def source_files(source: Path) -> List[Path]:
     return files
 
 
-def source_key(stem: str) -> str:
-    """sha256 of what decides ``csrc/<stem>.cu``'s library apart from the
-    compiler: the source, the files it includes and the nvcc flags. A process
-    without ``nvcc`` can compute it (``utils/aot.py`` checks an exported
-    library with it)."""
+def source_key(stem: str, shape) -> str:
+    """sha256 of what decides ``csrc/<stem>.cu``'s library at ``shape`` apart
+    from the compiler: the source, the files it includes, the nvcc flags
+    and the shape's defines. A process without ``nvcc`` can compute it
+    (``utils/aot.py`` checks an exported library with it)."""
     key = b"".join(p.read_bytes() for p in source_files(CSRC / f"{stem}.cu"))
-    return hashlib.sha256(key + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    flags = NVCC_FLAGS + defines(stem, shape)
+    return hashlib.sha256(key + " ".join(flags).encode()).hexdigest()
 
 
-def build_library(stem: str) -> Tuple[Path, str]:
-    """Compile ``csrc/<stem>.cu`` unless a library of the same key
-    (``source_key`` and the nvcc version) exists. Returns its path and the
-    compiler's output (``-Xptxas -v``: registers, spills, shared memory per
-    instantiation), empty when the library was already built."""
+def library_name(stem: str, shape, nvcc_version: str) -> str:
+    """The file name of ``csrc/<stem>.cu``'s library at ``shape``, built by
+    the ``nvcc`` whose ``--version`` says ``nvcc_version``."""
+    tag = hashlib.sha256((source_key(stem, shape) + nvcc_version).encode()).hexdigest()[:16]
+    return f"lib{stem}_{tag}.so"
+
+
+def build_library(stem: str, shape) -> Tuple[Path, str]:
+    """Compile ``csrc/<stem>.cu`` for ``shape`` unless a library of the same
+    name (``library_name``) exists. Returns its path and the compiler's
+    output (``-Xptxas -v``: registers, spills, shared memory), empty when
+    the library was already built. Raises, before ``nvcc`` is called, for a
+    shape the kernel does not take or whose lane does not fit (``check_fits``)."""
     source = CSRC / f"{stem}.cu"
+    flags = defines(stem, shape)
+    check_fits(stem, shape)
     compiler = nvcc()
-    version = subprocess.run(
-        [compiler, "--version"], capture_output=True, text=True, check=True
-    ).stdout
-    tag = hashlib.sha256((source_key(stem) + version).encode()).hexdigest()[:16]
     out_dir = build_dir()
-    out = out_dir / f"lib{stem}_{tag}.so"
+    out = out_dir / library_name(stem, shape, nvcc_version(compiler))
     if out.exists():
         return out, ""
     compile_cache.enable_compile_cache(out_dir)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
-    cmd = [compiler, *NVCC_FLAGS, "-o", tmp, str(source)]
+    cmd = [compiler, *NVCC_FLAGS, *flags, "-o", tmp, str(source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
@@ -112,26 +211,41 @@ def build_library(stem: str) -> Tuple[Path, str]:
     return out, proc.stdout + proc.stderr
 
 
-def load_library(stem: str) -> ctypes.CDLL:
-    """The library of ``csrc/<stem>.cu``: one registered for this process
-    (``register_library``), else built if needed and loaded; kept for the
-    process."""
-    if stem not in _libs:
-        _libs[stem] = ctypes.CDLL(str(build_library(stem)[0]))
-    return _libs[stem]
+def build_libraries(kernels) -> Dict[Tuple[str, tuple], Tuple[Path, str]]:
+    """``build_library`` of each (stem, shape) of ``kernels`` at once, one
+    ``nvcc`` each in parallel; returns {(stem, shape): (path, log)}."""
+    keys = list(dict.fromkeys((stem, check_shape(stem, shape)) for stem, shape in kernels))
+    if not keys:
+        return {}
+    with concurrent.futures.ThreadPoolExecutor(len(keys)) as pool:
+        return dict(zip(keys, pool.map(lambda key: build_library(*key), keys)))
 
 
-def register_library(stem: str, path: os.PathLike) -> ctypes.CDLL:
+def load_library(stem: str, shape) -> ctypes.CDLL:
+    """The library of ``csrc/<stem>.cu`` at ``shape``: one registered for
+    this process (``register_library``), else built if needed and loaded;
+    kept for the process."""
+    lib = _libs.get((stem, tuple(shape)))  # the wrappers' path: loaded already
+    if lib is None:
+        key = (stem, check_shape(stem, shape))
+        if key not in _libs:
+            _libs[key] = ctypes.CDLL(str(build_library(*key)[0]))
+        lib = _libs[key]
+    return lib
+
+
+def register_library(stem: str, shape, path: os.PathLike) -> ctypes.CDLL:
     """Load the library at ``path`` (by its absolute path, so the loader
-    searches no ``LD_LIBRARY_PATH``) as ``csrc/<stem>.cu``'s for this
-    process, unless one is loaded already; ``load_library`` then builds
-    nothing. The caller vouches that it was built from the same sources and
-    flags (``utils/aot.py`` checks ``source_key``)."""
-    if stem not in _libs:
+    searches no ``LD_LIBRARY_PATH``) as ``csrc/<stem>.cu``'s at ``shape`` for
+    this process, unless one is loaded already; ``load_library`` then builds
+    nothing. The caller vouches that it was built from the same sources,
+    flags and shape (``utils/aot.py`` checks ``source_key``)."""
+    key = (stem, check_shape(stem, shape))
+    if key not in _libs:
         lib = ctypes.CDLL(str(Path(path).resolve()))
         getattr(lib, f"{stem}_launch")  # AttributeError for another library
-        _libs[stem] = lib
-    return _libs[stem]
+        _libs[key] = lib
+    return _libs[key]
 
 
 def check_tensor(op: str, name: str, t: torch.Tensor, shape, device) -> None:
@@ -146,12 +260,17 @@ def check_tensor(op: str, name: str, t: torch.Tensor, shape, device) -> None:
         raise ValueError(f"{op}: {name} is not contiguous")
 
 
-def raise_for_status(op: str, err: int, shape_name: str, shape, source: str) -> None:
+def raise_for_status(op: str, err: int, stem: str, shape) -> None:
     """Turn a launcher's return code into an exception."""
     if err == NO_INSTANTIATION:
         raise ValueError(
-            f"{op}: no CUDA instantiation for {shape_name} = {shape}; "
-            f"add a RICCATI_CASE line to csrc/{source}"
+            f"{op}: the csrc/{stem}.cu library loaded for {SHAPE_FIELDS[stem]} = "
+            f"{tuple(shape)} was built for another shape"
+        )
+    if err == NO_ROOM:
+        raise ValueError(
+            f"{op}: not one lane at {SHAPE_FIELDS[stem]} = {tuple(shape)} fits this card's "
+            f'shared memory; solve it with riccati_backend="scan"'
         )
     if err != 0:
         raise RuntimeError(f"{op}: kernel launch failed (cudaError {err})")

@@ -10,9 +10,10 @@ model without the holonomic block structure of ``ops/riccati_packed.py``.
   kernel of ``csrc/riccati_batched.cu`` (a team of threads per scenario
   that walks the stages in turn, each stage's data staged into shared
   memory with coalesced asynchronous copies; see the note at the top of
-  that file), built and loaded by ``ops/_build.py``. A missing ``nvcc``, a
-  failed build or a shape with no instantiation raises; there is no
-  fallback.
+  that file), built for the problem's shape at its first use and loaded by
+  ``ops/_build.py``. A missing ``nvcc``, a failed build or a shape whose
+  lane does not fit the card's shared memory raises; there is no fallback
+  (``riccati_backend="scan"`` takes any shape).
 * On a CPU tensor it runs ``riccati_backward_batched_reference``, the plain
   batched PyTorch version of the same arithmetic (and the kernel's oracle).
 
@@ -137,10 +138,11 @@ def riccati_backward_batched_reference(lx, lw, lxx, lxw, lww, A, Bm, reg, *, N, 
 # ------------------------------------------------------------------ the kernel
 
 
-def build_kernel() -> ctypes.CDLL:
-    """Compile (once per hash of source, flags and nvcc version) and load the
-    kernel library."""
-    lib = _build.load_library("riccati_batched")
+def build_kernel(nx: int, nw: int) -> ctypes.CDLL:
+    """Compile (once per hash of source, flags, shape and nvcc version) and
+    load the kernel library for the shape ``(nx, nw)``. Raises, before any
+    build, for a shape whose lane does not fit the card's shared memory."""
+    lib = _build.load_library("riccati_batched", (nx, nw))
     fn = lib.riccati_batched_launch
     fn.argtypes = (
         [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
@@ -184,7 +186,7 @@ def riccati_backward_batched(lx, lw, lxx, lxw, lww, A, Bm, reg, *, N, nx, nw):
     K = torch.empty((Bsz, N, nw, nx), dtype=torch.float32, device=dev)
     if Bsz == 0 or N == 0:  # nothing to sweep: no launch, no lane failed
         return k_ff, K, torch.zeros((Bsz,), dtype=torch.bool, device=dev)
-    lib = build_kernel()
+    lib = build_kernel(nx, nw)
     failed = torch.empty((Bsz,), dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -196,9 +198,7 @@ def riccati_backward_batched(lx, lw, lxx, lxw, lww, A, Bm, reg, *, N, nx, nw):
             N * nx * nw if Bm.dim() == 4 else 0,
             stream,
         )
-    _build.raise_for_status(
-        "riccati_backward_batched", err, "(nx, nw)", (nx, nw), "riccati_batched.cu"
-    )
+    _build.raise_for_status("riccati_backward_batched", err, "riccati_batched", (nx, nw))
     riccati_backward_batched.launches += 1
     return k_ff, K, failed
 

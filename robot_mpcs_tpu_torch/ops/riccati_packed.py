@@ -11,8 +11,10 @@ scalars, so every A/B product of the sweep collapses to O(nx^2) work.
   walks the stages in turn, each stage's data staged into shared memory
   with coalesced asynchronous copies while the previous stage computes;
   see the note at the top of that file for what bounds it on an H100),
-  built and loaded by ``ops/_build.py``. A missing ``nvcc`` or a failed
-  build raises; there is no fallback.
+  built for the problem's shape at its first use and loaded by
+  ``ops/_build.py``. A missing ``nvcc``, a failed build, a shape that is not
+  holonomic (``ns`` not 0 or 1) or one whose lane does not fit the card's
+  shared memory raises; there is no fallback.
 * On a CPU tensor it runs ``riccati_backward_packed_reference``, the plain
   batched PyTorch version of the same recursion (and the kernel's oracle).
 
@@ -151,10 +153,12 @@ def riccati_backward_packed_reference(
 # ------------------------------------------------------------------ the kernel
 
 
-def build_kernel() -> ctypes.CDLL:
-    """Compile (once per hash of source, flags and nvcc version) and load the
-    kernel library."""
-    lib = _build.load_library("riccati_packed")
+def build_kernel(nx: int, nw: int, ns: int) -> ctypes.CDLL:
+    """Compile (once per hash of source, flags, shape and nvcc version) and
+    load the kernel library for the shape ``(nx, nw, ns)``. Raises, before
+    any build, for a shape the kernel does not take or whose lane does not
+    fit the card's shared memory."""
+    lib = _build.load_library("riccati_packed", (nx, nw, ns))
     fn = lib.riccati_packed_launch
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3 + [
         ctypes.c_void_p
@@ -193,7 +197,7 @@ def riccati_backward_packed(lx, lw, lxx, lxw, lww, reg, *, N, nx, nw, ns, a, b1,
     K = torch.empty((Bsz, N, nw, nx), dtype=torch.float32, device=dev)
     if Bsz == 0 or N == 0:  # nothing to sweep: no launch, no lane failed
         return k_ff, K, torch.zeros((Bsz,), dtype=torch.bool, device=dev)
-    lib = build_kernel()
+    lib = build_kernel(nx, nw, ns)
     failed = torch.empty((Bsz,), dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -203,9 +207,7 @@ def riccati_backward_packed(lx, lw, lxx, lxw, lww, reg, *, N, nx, nw, ns, a, b1,
             failed.data_ptr(), Bsz, N, nx, nw, ns,
             float(a), float(b1), float(b2), stream,
         )
-    _build.raise_for_status(
-        "riccati_backward_packed", err, "(nx, nw, ns)", (nx, nw, ns), "riccati_packed.cu"
-    )
+    _build.raise_for_status("riccati_backward_packed", err, "riccati_packed", (nx, nw, ns))
     riccati_backward_packed.launches += 1
     return k_ff, K, failed
 

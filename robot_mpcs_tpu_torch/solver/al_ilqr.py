@@ -212,9 +212,9 @@ def build_solver(
             return A, torch.cat([Bu.new_zeros((Bsz, N, nx, ns)), Bu], -1)
 
     # ---------------- backward sweep dispatch (al_ilqr.py:537-634) ----------
-    # Unlike the JAX package, a shape the CUDA kernel has no instantiation
-    # for raises on the card instead of falling back to the scan (which the
-    # caller can choose with riccati_backend="scan").
+    # Unlike the JAX package, a shape of which one lane does not fit the
+    # card's shared memory raises on the card instead of falling back to the
+    # scan (which the caller can choose with riccati_backend="scan").
 
     packed = None
     if isinstance(stage.dyn_jac, tuple) and cfg.riccati_backend != "scan":

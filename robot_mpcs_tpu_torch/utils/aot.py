@@ -13,17 +13,19 @@ port's exported program is that kernel's library:
 * ``export_planner_solve(problem, path)`` builds the library that the
   problem's solve launches (``riccati_packed`` for holonomic problems,
   ``riccati_batched`` otherwise, as ``solver/al_ilqr.build_solver`` chooses;
-  none for ``riccati_backend="scan"``), copies it into the artifact directory
-  and writes ``export_meta.yaml`` beside it;
+  none for ``riccati_backend="scan"``), compiled for the problem's own shape
+  (``kernel_shapes``), copies it into the artifact directory and writes
+  ``export_meta.yaml`` beside it;
 * ``load_planner_solve(problem, path)`` checks that fingerprint against the
   running process and the sources in the tree, without calling ``nvcc``,
   and registers the copied library for the process
   (``_build.register_library``), so that the first solve builds nothing. A
   robot with the CUDA runtime and no CUDA toolkit can then run the planner.
 
-The fingerprint (``_fingerprint``): for each library, the file and
-``_build.source_key`` (the hash of its source, the headers it includes and
-the nvcc flags; the flags pin ``sm_90a``); ``torch.__version__`` and
+The fingerprint (``_fingerprint``): for each library, the file, the shape
+it was compiled for and ``_build.source_key`` (the hash of its source, the
+headers it includes, the nvcc flags and the shape's defines; the flags pin
+``sm_90a``); ``torch.__version__`` and
 ``torch.version.cuda``; the card's name and compute capability; and the
 problem's shape fields, as the JAX package's ``_abi_fingerprint``. The JAX
 fingerprint's batch size has no counterpart: the kernels take any B. When the
@@ -36,11 +38,11 @@ What has no counterpart here:
 
 * ``_register_serializations``: no serialized program returns NamedTuples;
   a library's entry point takes raw pointers.
-* ``export_fleet_step`` / ``load_fleet_step``: one library holds every
-  ``RICCATI_CASE`` instantiation, at any batch size, and a fleet step of a
-  problem launches the same kernel as its planner's solve. A fleet loads
-  the planner's export: ``load_planner_solve(runner.problem, path)`` before
-  its first step.
+* ``export_fleet_step`` / ``load_fleet_step``: a library is compiled for
+  one problem shape and takes any batch size, and a fleet step of a problem
+  launches the same kernel at the same shape as its planner's solve. A
+  fleet loads the planner's export: ``load_planner_solve(runner.problem,
+  path)`` before its first step.
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ from __future__ import annotations
 import os
 import shutil
 import warnings
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -58,11 +60,16 @@ from robot_mpcs_tpu_torch.utils.devices import resolve_device
 EXPORT_META = "export_meta.yaml"
 
 
-def kernel_stems(problem) -> List[str]:
-    """The kernel libraries (``csrc`` stems) the problem's solve launches on
-    the card."""
+def kernel_shapes(problem) -> List[Tuple[str, tuple]]:
+    """The kernel libraries the problem's solve launches on the card: its
+    ``csrc`` stem and the shape it is compiled for, ``(nx, nw, ns)`` for the
+    structured sweep and ``(nx, nw)`` for the general one (nw = nu + ns)."""
     stem = problem.build_solver(device="cpu").riccati_kernel
-    return [stem] if stem else []
+    if stem is None:
+        return []
+    d = problem.dims
+    shape = (d.nx, d.nu + d.ns, d.ns) if stem == "riccati_packed" else (d.nx, d.nu + d.ns)
+    return [(stem, shape)]
 
 
 def _device_fingerprint(device: torch.device) -> dict:
@@ -70,12 +77,13 @@ def _device_fingerprint(device: torch.device) -> dict:
     return {"device_name": props.name, "capability": f"{props.major}.{props.minor}"}
 
 
-def _fingerprint(problem, stems: List[str], device: torch.device) -> dict:
+def _fingerprint(problem, kernels: List[Tuple[str, tuple]], device: torch.device) -> dict:
     d = problem.dims
     return {
         "kernels": {
-            stem: {"file": f"lib{stem}.so", "source_key": _build.source_key(stem)}
-            for stem in stems
+            stem: {"file": f"lib{stem}.so", "shape": list(shape),
+                   "source_key": _build.source_key(stem, shape)}
+            for stem, shape in kernels
         },
         "torch": str(torch.__version__),
         "cuda": torch.version.cuda,
@@ -97,11 +105,11 @@ def export_planner_solve(problem, path: str, device="cuda") -> str:
     dev = resolve_device(device)
     import yaml
 
-    stems = kernel_stems(problem)
+    kernels = kernel_shapes(problem)
     os.makedirs(path, exist_ok=True)
-    meta = _fingerprint(problem, stems, dev)
-    for stem in stems:
-        lib, _ = _build.build_library(stem)
+    meta = _fingerprint(problem, kernels, dev)
+    for stem, shape in kernels:
+        lib, _ = _build.build_library(stem, shape)
         shutil.copyfile(lib, os.path.join(path, meta["kernels"][stem]["file"]))
     out = os.path.join(path, EXPORT_META)
     with open(out, "w") as f:
@@ -126,7 +134,7 @@ def load_planner_solve(problem, path: str, device="cuda") -> Optional[Dict[str, 
     try:
         with open(meta_path) as f:
             meta = yaml.safe_load(f)
-        want = _fingerprint(problem, kernel_stems(problem), dev)
+        want = _fingerprint(problem, kernel_shapes(problem), dev)
         if meta != want:
             keys = sorted(k for k in set(meta) | set(want) if meta.get(k) != want.get(k))
             warnings.warn(
@@ -135,10 +143,10 @@ def load_planner_solve(problem, path: str, device="cuda") -> Optional[Dict[str, 
                 stacklevel=2,
             )
             return None
-        libs = {stem: os.path.abspath(os.path.join(path, entry["file"]))
-                for stem, entry in meta["kernels"].items()}
-        for stem, lib in libs.items():
-            _build.register_library(stem, lib)
+        libs = {}
+        for stem, entry in meta["kernels"].items():
+            libs[stem] = os.path.abspath(os.path.join(path, entry["file"]))
+            _build.register_library(stem, tuple(entry["shape"]), libs[stem])
         return libs
     except (OSError, AttributeError, KeyError, TypeError, yaml.YAMLError) as e:
         warnings.warn(f"ignoring unreadable kernel export at {path} ({e}); "

@@ -31,10 +31,13 @@ struct cudaFuncAttributes {
 };
 enum { cudaDevAttrMaxSharedMemoryPerBlockOptin, cudaFuncAttributeMaxDynamicSharedMemorySize };
 
-// the opt-in shared memory a block may have (an H100's by default)
-inline int emu_shared_optin = 232448;
-inline size_t emu_last_dynamic_bytes = 0;
-inline std::vector<float> emu_dynamic;
+// the opt-in shared memory a block may have (an H100's by default). Each
+// library compiled against this header has its own copy of these (static,
+// not inline: an inline variable is one symbol for the whole process).
+static int emu_shared_optin = 232448;
+static size_t emu_last_dynamic_bytes = 0;
+static unsigned emu_last_block = 0, emu_last_grid = 0;
+static std::vector<float> emu_dynamic;
 
 inline int cudaGetLastError() { return 0; }
 inline int cudaGetDevice(int* dev) {
@@ -67,11 +70,16 @@ template <class F>
 void emu_launch(int grid, int block, size_t dynamic_bytes, cudaStream_t, F call) {
   blockDim.x = block;
   emu_last_dynamic_bytes = dynamic_bytes;
+  emu_last_block = block;
+  emu_last_grid = grid;
   for (int bx = 0; bx < grid; ++bx) {
     emu_dynamic.assign(dynamic_bytes / sizeof(float) + 1, NAN);
     std::barrier<> block_barrier(block);
     std::vector<std::unique_ptr<std::barrier<>>> warps;
-    for (int w = 0; w < (block + 31) / 32; ++w) warps.emplace_back(new std::barrier<>(32));
+    // a block of fewer than 32 threads, or a part-filled last warp, is a
+    // warp of those threads only
+    for (int w = 0; w < (block + 31) / 32; ++w)
+      warps.emplace_back(new std::barrier<>(block - 32 * w < 32 ? block - 32 * w : 32));
     std::vector<std::thread> threads;
     for (int tx = 0; tx < block; ++tx)
       threads.emplace_back([&, tx] {
@@ -86,4 +94,6 @@ void emu_launch(int grid, int block, size_t dynamic_bytes, cudaStream_t, F call)
 }
 
 extern "C" size_t emu_dynamic_bytes() { return emu_last_dynamic_bytes; }
+extern "C" unsigned emu_block_threads() { return emu_last_block; }
+extern "C" unsigned emu_grid_blocks() { return emu_last_grid; }
 extern "C" void emu_set_shared_optin(int bytes) { emu_shared_optin = bytes; }

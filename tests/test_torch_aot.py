@@ -25,7 +25,7 @@ import pytest
 import torch
 import yaml
 
-from robot_mpcs_tpu_torch.config import load_setup
+from robot_mpcs_tpu_torch.config import Setup, load_setup
 from robot_mpcs_tpu_torch.models.problem import MpcProblem
 from robot_mpcs_tpu_torch.ops import _build
 from robot_mpcs_tpu_torch.ops import riccati_batched as rb
@@ -41,11 +41,18 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG_DIR = os.path.join(ROOT, "examples", "config")
 #: the stand-in card of the exported artifacts
 CARD = {"device_name": "NVIDIA H100 80GB HBM3", "capability": "9.0"}
-#: robot -> the kernel library its solve launches
-STEMS = {"pointRobot": "riccati_packed", "boxer": "riccati_batched"}
+#: robot -> the kernel library its solve launches and the shape it is
+#: compiled for; the mobile panda (the panda arm on a diff-drive base) is
+#: built in code (``chip_smoke.mobile_panda_setup``)
+KERNELS = {"pointRobot": ("riccati_packed", (6, 3, 0)), "boxer": ("riccati_batched", (8, 2)),
+           "mobilePanda": ("riccati_batched", (22, 9))}
 
 
 def _problem(kind):
+    if kind == "mobilePanda":
+        from chip_smoke import mobile_panda_setup
+
+        return MpcProblem(Setup.from_dict(mobile_panda_setup()))
     return MpcProblem(load_setup(os.path.join(CONFIG_DIR, f"{kind}Mpc.yaml")))
 
 
@@ -53,10 +60,9 @@ def _problem(kind):
 def emulated_libs(tmp_path_factory):
     if shutil.which("g++") is None:
         pytest.skip("needs g++ (C++20) to compile the kernels for the CPU")
-    from test_torch_riccati_emulated import _compile
+    from test_torch_riccati_emulated import _compile_all
 
-    out = tmp_path_factory.mktemp("emulated")
-    return {stem: _compile(out, stem) for stem in STEMS.values()}
+    return _compile_all(tmp_path_factory.mktemp("emulated"), KERNELS.values())
 
 
 @pytest.fixture
@@ -77,7 +83,7 @@ def _export(monkeypatch, problem, path, lib):
     """``export_planner_solve`` for the stand-in card, its build returning ``lib``."""
     monkeypatch.setattr(aot, "_device_fingerprint", lambda device: dict(CARD))
     with monkeypatch.context() as m:
-        m.setattr(_build, "build_library", lambda stem: (lib, ""))
+        m.setattr(_build, "build_library", lambda stem, shape: (lib, ""))
         return aot.export_planner_solve(problem, str(path), device="cpu")
 
 
@@ -90,33 +96,36 @@ def test_generate_solver_on_the_cpu_writes_the_yamls_only(tmp_path):
     assert MpcProblem.from_solver_dir(path).npar == problem.npar
 
 
-@pytest.mark.parametrize("kind", sorted(STEMS))
+@pytest.mark.parametrize("kind", sorted(KERNELS))
 def test_exported_library_loads_without_nvcc(kind, emulated_libs, no_nvcc, monkeypatch, tmp_path):
-    problem, stem = _problem(kind), STEMS[kind]
-    assert aot.kernel_stems(problem) == [stem]
-    meta_path = _export(monkeypatch, problem, tmp_path / "artifact", emulated_libs[stem])
+    problem, (stem, shape) = _problem(kind), KERNELS[kind]
+    assert aot.kernel_shapes(problem) == [(stem, shape)]
+    meta_path = _export(monkeypatch, problem, tmp_path / "artifact", emulated_libs[(stem, shape)])
     with open(meta_path) as f:
         meta = yaml.safe_load(f)
-    assert meta["kernels"] == {stem: {"file": f"lib{stem}.so", "source_key": _build.source_key(stem)}}
+    assert meta["kernels"] == {stem: {"file": f"lib{stem}.so", "shape": list(shape),
+                                      "source_key": _build.source_key(stem, shape)}}
     assert meta["torch"] == torch.__version__ and meta["solver_name"] == problem.solver_name
 
     libs = aot.load_planner_solve(problem, str(tmp_path / "artifact"), device="cpu")
     want = os.path.abspath(tmp_path / "artifact" / f"lib{stem}.so")
     assert libs == {stem: want}
     module = rp if stem == "riccati_packed" else rb
-    lib = module.build_kernel()  # load_library: the registered copy, no nvcc
-    assert lib._name == want and _build.load_library(stem) is lib
+    lib = module.build_kernel(*shape)  # load_library: the registered copy, no nvcc
+    assert lib._name == want and _build.load_library(stem, shape) is lib
     assert not os.path.exists(tmp_path / "cache")  # nothing built
     # the registered library's launcher computes the sweep (host threads)
     from test_torch_riccati_emulated import _general, _packed
 
     if stem == "riccati_packed":
-        args = [torch.as_tensor(v) for v in random_sweep_inputs(5, 20, 6, 3, seed=2)]
-        kw = dict(N=20, nx=6, nw=3, ns=0, a=0.05, b1=0.00125, b2=0.05)
+        nx, nw, ns = shape
+        args = [torch.as_tensor(v) for v in random_sweep_inputs(5, 20, nx, nw, seed=2)]
+        kw = dict(N=20, nx=nx, nw=nw, ns=ns, a=0.05, b1=0.00125, b2=0.05)
         got, want_sweep, atol = _packed(lib, args, **kw), rp.riccati_backward_packed_reference(*args, **kw), 2e-5
     else:
-        args = [torch.as_tensor(v) for v in random_general_inputs(5, 10, 8, 2, seed=2)]
-        kw = dict(N=10, nx=8, nw=2)
+        nx, nw = shape
+        args = [torch.as_tensor(v) for v in random_general_inputs(5, 10, nx, nw, seed=2)]
+        kw = dict(N=10, nx=nx, nw=nw)
         got, want_sweep, atol = _general(lib, args, **kw), rb.riccati_backward_batched_reference(*args, **kw), 2e-4
     for g, w in zip(got[:2], want_sweep[:2]):
         torch.testing.assert_close(g, w, rtol=2e-3, atol=atol)
@@ -160,7 +169,7 @@ def test_mismatched_or_unreadable_export_is_declined_loudly(what, no_nvcc, monke
     assert _build._libs == {}
     # the kernel is then built from the sources: here that raises (no nvcc)
     with pytest.raises(AssertionError, match="nvcc was called"):
-        rp.build_kernel()
+        rp.build_kernel(6, 3, 0)
 
 
 def test_artifact_without_export_warns(tmp_path):
@@ -192,7 +201,7 @@ def test_unwritable_cache_raises_naming_the_variable(monkeypatch, tmp_path):
     fake.chmod(0o755)
     monkeypatch.setattr(_build, "nvcc", lambda: str(fake))
     with pytest.raises(RuntimeError, match=compile_cache.CACHE_ENV):
-        _build.build_library("riccati_packed")
+        _build.build_library("riccati_packed", (6, 3, 0))
 
 
 def test_fresh_process_solves_like_the_in_process_planner(tmp_path):

@@ -22,15 +22,20 @@ from robot_mpcs_tpu_torch.ops import riccati_packed as rp
 torch.set_num_threads(2)
 
 #: (n, ns, N, B): the test dims, pointRobot's group shape, the panda fleet
-#: shape, panda with a slack column, the panda rescue tier's shape
+#: shape, panda with a slack column, the panda rescue tier's shape; shapes
+#: compiled at first use: the 6-dof chain, 2 and 15 dof with slack, and 17
+#: dof with slack (1 + nx = 35 solve columns on a 32-thread team)
 CASES = [(3, 0, 6, 5), (3, 1, 5, 5), (3, 0, 20, 1024), (7, 0, 20, 4096), (7, 1, 20, 64),
-         (7, 0, 20, 512)]
+         (7, 0, 20, 512), (6, 0, 20, 64), (2, 1, 20, 1024), (15, 1, 20, 1024), (17, 1, 20, 37)]
 #: (nx, nw, N, B, per-lane A/B): chip_smoke.py's general-sweep shapes and
-#: boxer's rescue tier
+#: boxer's rescue tier; the mobile panda (22, 9) at its fleet's phase 1,
+#: rescue tier and B=1, with slack (22, 10) batch-constant, and (36, 16):
+#: 37 solve columns on a 32-thread team, 3 lanes per block, ragged at B=5
 GENERAL_CASES = [
     (6, 3, 5, 5, True), (14, 7, 20, 64, True), (8, 2, 10, 1024, True),
     (8, 2, 10, 4096, True), (8, 3, 10, 64, True), (8, 2, 10, 4096, False),
-    (8, 2, 10, 128, True),
+    (8, 2, 10, 128, True), (22, 9, 20, 1024, True), (22, 9, 20, 128, True), (22, 9, 20, 1, True),
+    (22, 10, 20, 1024, False), (36, 16, 20, 128, True), (36, 16, 20, 5, False),
 ]
 #: (B, N): batches that are no multiple of a block's lanes (8 for 16-thread
 #: teams, 4 for 32-thread teams), and a one-stage horizon
@@ -75,7 +80,7 @@ def test_kernel_nan_lane_and_input_checks_on_card():
         rp.riccati_backward_packed(*(a.double() for a in args), **kw)
     with pytest.raises(ValueError, match="contiguous"):
         rp.riccati_backward_packed(args[0], args[1], args[2].transpose(2, 3), *args[3:], **kw)
-    with pytest.raises(ValueError, match="no CUDA instantiation"):
+    with pytest.raises(ValueError, match="not a holonomic shape"):
         rp.riccati_backward_packed(*args, **dict(kw, ns=2))
 
 
@@ -137,9 +142,14 @@ def test_general_kernel_bad_lanes_and_input_checks_on_card():
         rb.riccati_backward_batched(*args[:5], args[5][:, :3], *args[6:], **kw)
     with pytest.raises(ValueError, match="on cpu"):
         rb.riccati_backward_batched(*args[:5], args[5].cpu(), *args[6:], **kw)
-    wide = [torch.as_tensor(a, device="cuda") for a in random_general_inputs(2, 3, 10, 2)]
-    with pytest.raises(ValueError, match="no CUDA instantiation"):
-        rb.riccati_backward_batched(*wide, N=3, nx=10, nw=2)
+    # a shape of which not one lane fits a block's shared memory: refused,
+    # naming the scan, nothing launched
+    nx, nw = chip_smoke.OVERSIZED
+    wide = [torch.as_tensor(a, device="cuda") for a in random_general_inputs(2, 3, nx, nw)]
+    before = rb.riccati_backward_batched.launches
+    with pytest.raises(ValueError, match='riccati_backend="scan"'):
+        rb.riccati_backward_batched(*wide, N=3, nx=nx, nw=nw)
+    assert rb.riccati_backward_batched.launches == before
 
 
 @pytest.mark.gpu
@@ -354,7 +364,7 @@ def test_nccl_world1_step_equals_the_plain_step_on_card():
     from robot_mpcs_tpu_torch.parallel.mesh import make_mesh
 
     problem = _fleet_problem("pointRobot")
-    scenario = random_fleet_scenario(problem, 256, seed=0, **chip_smoke.GROUP_SAMPLERS["pointRobot"])
+    scenario = random_fleet_scenario(problem, 256, seed=0, **chip_smoke.sampler("pointRobot"))
     assert distributed.initialize(f"127.0.0.1:{chip_smoke.free_port()}", 1, 0, backend="nccl",
                                   device="cuda:0")
     try:
@@ -442,7 +452,7 @@ def test_reference_form_solves_on_card(generic):
 
     problem = _fleet_problem("pointRobot")
     B = 64
-    sc = random_fleet_scenario(problem, B, seed=0, **chip_smoke.GROUP_SAMPLERS["pointRobot"])
+    sc = random_fleet_scenario(problem, B, seed=0, **chip_smoke.sampler("pointRobot"))
     d = problem.dims
     z0 = torch.zeros((B, d.N, d.nz))
     z0[:, :, : d.nx] = sc.xinit[:, None, :]
@@ -489,6 +499,56 @@ def test_artifact_loads_with_nvcc_unreachable_on_card(tmp_path):
     _need_card()
     rec = chip_smoke.deploy_check("panda", str(tmp_path))
     assert rec["export"]["action_diff"] <= rec["export"]["bar"]
+
+
+@pytest.mark.gpu
+def test_mobile_panda_artifact_loads_with_nvcc_unreachable_on_card(tmp_path):
+    """The mobile panda's artifact holds the general kernel compiled for
+    (22, 9); a process without nvcc loads it and solves as this one does."""
+    _need_card()
+    rec = chip_smoke.deploy_check("mobilePanda", str(tmp_path), altered=False)
+    assert rec["export"]["action_diff"] <= rec["export"]["bar"]
+
+
+@pytest.mark.gpu
+def test_one_library_per_shape_on_card():
+    """A shape is built once and then loaded from the kernel cache; another
+    shape is another library; its launcher refuses any shape but its own."""
+    _need_card()
+    from robot_mpcs_tpu_torch.ops import _build
+
+    lib = rb.build_kernel(22, 9)
+    assert rb.build_kernel(22, 9) is lib and _build.load_library("riccati_batched", [22, 9]) is lib
+    path, log = _build.build_library("riccati_batched", (22, 9))
+    assert log == "" and path.name == lib._name.rsplit("/", 1)[-1]
+    assert rb.build_kernel(22, 10) is not lib
+    args, _ = _general(2, 3, 22, 9)
+    k = torch.empty((2, 3, 10), device="cuda")
+    K = torch.empty((2, 3, 10, 22), device="cuda")
+    f = torch.empty((2,), dtype=torch.bool, device="cuda")
+    err = lib.riccati_batched_launch(*(t.data_ptr() for t in (*args, k, K, f)), 2, 3, 22, 10, 0, 0,
+                                     torch.cuda.current_stream().cuda_stream)
+    assert err == _build.NO_INSTANTIATION
+
+
+@pytest.mark.gpu
+def test_mobile_panda_fleet_on_card():
+    """The mobile panda's fleet (B=256, 2 steps, rescue tier at 1/8) runs
+    through the general kernel at (256, 20, 22, 9) and (32, 20, 22, 9)."""
+    _need_card()
+    from robot_mpcs_tpu_torch.config import Setup
+    from robot_mpcs_tpu_torch.models.problem import MpcProblem
+    from robot_mpcs_tpu_torch.parallel.fleet import FleetRunner, random_fleet_scenario
+
+    problem = MpcProblem(Setup.from_dict(chip_smoke.mobile_panda_setup()))
+    runner = FleetRunner(problem, 256, device="cuda", kick_scale=0.0)
+    scen = runner.to_device(random_fleet_scenario(problem, 256, seed=0, **chip_smoke.MOBILE_SAMPLER))
+    state = runner.init_state(scen)
+    with chip_smoke.launches_by_batch(2) as tally:
+        for _ in range(2):
+            state, m = runner.step(state, scen)
+    assert {B for name, B in tally if name == "riccati_backward_batched"} == {256, 32}
+    assert torch.isfinite(state.x).all() and float(m.max_violation_converged) <= 1e-4
 
 
 @pytest.mark.gpu

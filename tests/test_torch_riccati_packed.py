@@ -8,8 +8,6 @@ in another order and the Schur-form vs full-form value update). The CUDA
 kernel itself runs only on the card (``tests/test_torch_gpu.py``).
 """
 
-import re
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -107,25 +105,35 @@ def test_non_cpu_non_cuda_tensor_raises():
         rp.riccati_backward_packed(*data, N=3, nx=6, nw=3, ns=0, a=0.1, b1=0.005, b2=0.1)
 
 
-_CASE = re.compile(r"^\s*RICCATI_CASE\(([\d,\s]+)\)", re.M)
+#: the team size T and stage buffers of each shape the source files listed
+#: before shapes were compiled at first use: they keep both (and so their
+#: times)
+EARLIER_SHAPES = {
+    ("riccati_packed", (6, 3, 0)): (16, 2), ("riccati_packed", (6, 4, 1)): (16, 2),
+    ("riccati_packed", (14, 7, 0)): (32, 2), ("riccati_packed", (14, 8, 1)): (32, 2),
+    ("riccati_batched", (6, 3)): (16, 3), ("riccati_batched", (14, 7)): (32, 2),
+    ("riccati_batched", (8, 2)): (16, 3), ("riccati_batched", (8, 3)): (16, 3),
+}
 
 
-def _instantiations(source):
-    """The integer tuples of the RICCATI_CASE lines of ``csrc/<source>``."""
-    text = (_build.CSRC / source).read_text()
-    return [tuple(int(v) for v in case.split(",")) for case in _CASE.findall(text)]
+def _setups():
+    from chip_smoke import chain6_setup, mobile_panda_setup
+
+    return {"pointRobot": point_robot_setup, "panda": panda_setup, "boxer": boxer_setup,
+            "mobilePanda": mobile_panda_setup, "chain6": chain6_setup}
 
 
 @pytest.mark.parametrize("slack", [False, True], ids=["no_slack", "slack"])
-@pytest.mark.parametrize("robot", ["pointRobot", "panda", "boxer"])
+@pytest.mark.parametrize("robot", ["pointRobot", "panda", "boxer", "mobilePanda", "chain6"])
 def test_every_solver_shape_is_instantiated(robot, slack):
     """Each shape the solver hands a CUDA kernel, for every robot with and
-    without the slack column, has a RICCATI_CASE line, and that line's team
-    size T passes the kernel's static_asserts: a team within one warp, with
-    more threads than the 1 + nx solve columns (structured kernel: the rest
-    assemble Qww) or at least as many (general kernel)."""
-    setups = {"pointRobot": point_robot_setup, "panda": panda_setup, "boxer": boxer_setup}
-    d = setups[robot]()
+    without the slack column, gets a team size and layout the kernel takes:
+    the shape ``utils/aot.kernel_shapes`` exports, a team T within one warp,
+    one lane's shared memory within a block's 227 KB, the ``-D`` defines of
+    its build; the earlier shapes keep their T and stage buffers."""
+    from robot_mpcs_tpu_torch.utils import aot
+
+    d = _setups()[robot]()
     d["mpc"]["slack"] = slack
     problem = MpcProblem(Setup.from_dict(d))
     dims = problem.dims
@@ -136,15 +144,18 @@ def test_every_solver_shape_is_instantiated(robot, slack):
         A = np.asarray(stage.dyn_jac[0])
         B = np.concatenate([np.zeros((nx, ns)), np.asarray(stage.dyn_jac[1])], 1)
         structured = rp.detect_structure(A, B, nx=nx, ns=ns)
-    assert (structured is not None) == (robot != "boxer")
-    if structured is not None:
-        teams = {c[:3]: c[3] for c in _instantiations("riccati_packed.cu")}
-        T = teams.get((nx, nw, ns))
-        assert T is not None and 32 % T == 0 and 1 + nx < T, ((nx, nw, ns), teams)
-    else:
-        teams = {c[:2]: c[2] for c in _instantiations("riccati_batched.cu")}
-        T = teams.get((nx, nw))
-        assert T is not None and 32 % T == 0 and 1 + nx <= T, ((nx, nw), teams)
+    assert (structured is not None) == (robot not in ("boxer", "mobilePanda"))
+    stem = "riccati_packed" if structured is not None else "riccati_batched"
+    shape = (nx, nw, ns) if structured is not None else (nx, nw)
+    assert aot.kernel_shapes(problem) == [(stem, shape)]
+    T, depth = _build.team_size(nx), _build.stage_depth(stem, shape)
+    assert 32 % T == 0 and depth in (2, 3)
+    assert 4 * _build.lane_floats(stem, shape, depth) <= _build.SM90_SHARED_OPTIN
+    _build.check_fits(stem, shape)  # raises where not
+    want = [f"-DRICCATI_NX={nx}", f"-DRICCATI_NW={nw}"] + ([f"-DRICCATI_NS={ns}"] if structured else [])
+    assert _build.defines(stem, shape) == want + [f"-DRICCATI_T={T}", f"-DRICCATI_DEPTH={depth}"]
+    if (stem, shape) in EARLIER_SHAPES:
+        assert (T, depth) == EARLIER_SHAPES[(stem, shape)]
 
 
 def test_build_key_covers_included_headers():
@@ -165,4 +176,4 @@ def test_missing_nvcc_raises(module, tmp_path, monkeypatch):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        module.build_kernel()
+        module.build_kernel(*((6, 3, 0) if module is rp else (8, 2)))
