@@ -19,8 +19,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    * at every shape the main paths launch them at (``PACKED_SHAPES``:
      panda's and pointRobot's phase 1 and rescue tier, alone and in the
      group, their planners' B=1, the bench's panda B=64 with its rescue
-     tier, holonomic arms of 2, 6 and 15 dof with and without slack, the
-     6-dof chain's B=64 and 17 dof with slack; ``GENERAL_SHAPES``: boxer's
+     tier, the kick fleet's B=1024 with its rescue tier, holonomic arms
+     of 2, 6 and 15 dof with and without slack, the 6-dof chain's B=64 and
+     17 dof with slack; ``GENERAL_SHAPES``: boxer's
      phase 1, planner (B=1) and rescue tier, boxer at B=4096 with per-lane
      and batch-constant A/B, (14, 7, 20) at B=4096, the mobile panda (22,
      9) and with slack (22, 10) at B=1024, 128 and 1 with per-lane and
@@ -71,6 +72,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ms, converged fraction, goal distance and mean iterations, launches by
    batch size, one profiled step, then 64 lanes of the last state solved on
    the card and on the CPU at phase 9's bars.
+5c. kick path: the fleet's local-minimum kick noise (``utils/prng.py``,
+   ``jax.random``'s threefry draw) on the card equals the CPU's bit for bit
+   (key, bits, uniforms, normals) at (4096, 20, 7) for steps 0 and 25 and
+   ranks 0 and 1; one draw's device events and call time are printed. Then
+   the bench's panda scenario (the port's ``bench._scenario_for``) at
+   B=1024 with the default rescue tier and ``kick_after=2`` for 4 steps,
+   read with its own launch counts: lanes are kicked, each kicked lane's
+   noise (its warm start less the unkicked shift) is the CPU's draw for the
+   same key within 1e-5, every number is finite, the last step's converged
+   fraction >= 0.9 with converged lanes feasible to 1e-4, and the
+   structured kernel launched at B=1024 and 128.
 6. planner path: the single-robot receding-horizon planner (``MPCPlanner``
    with ``KinematicSim``, ``FreeSpaceDecomposition``, ``GlobalPlanner``) on
    the card, each run read with its own launch counts (set to 0 before it):
@@ -177,6 +189,15 @@ MOBILE_BATCH = 1024
 MOBILE_STEPS = 6
 MOBILE_SAMPLER = dict(goal_box=((-1.5, -1.5, 0.3), (1.5, 1.5, 1.0)),
                       obstacle_box=((4.0, 4.0, 0.2), (5.0, 5.0, 1.0)))
+#: the kick fleet: the bench's panda scenario at B lanes with the default
+#: rescue tier and the kick after KICK_AFTER steps without improvement, so
+#: that lanes are kicked within its steps; the card's draw is held to the
+#: CPU's at KICK_DRAW for these (step, rank)
+KICK_BATCH = 1024
+KICK_STEPS = 4
+KICK_AFTER = 2
+KICK_DRAW = (4096, 20, 7)
+KICK_KEYS = ((0, 0), (0, 1), (25, 0), (25, 1))
 
 
 def sampler(name):
@@ -211,6 +232,9 @@ PACKED_SHAPES = {
     "holonomic n=15 slack": (1024, 20, 15, 1),
     "6-dof chain B=64": (64, 20, 6, 0),
     "holonomic n=17 slack": (128, 20, 17, 1),
+    # the kick fleet's phase 1 and rescue tier
+    "kick fleet phase 1": (KICK_BATCH, 20, 7, 0),
+    "kick fleet rescue": (KICK_BATCH // 8, 20, 7, 0),
 }
 #: ... and the general kernel, (B, N, nx, nw, per-lane A/B): boxer's phase 1,
 #: its planner (B=1) and rescue tier, then boxer at B=4096 with per-lane and batch-constant
@@ -861,6 +885,116 @@ def mobile_phase(torch, rb):
                     warm=(state.x, state.z_warm, state.lam))
     print(json.dumps({"mobile_phase_s": {"steps": t1 - t0, "profiled_step": t2 - t1,
                                          "card_vs_cpu": time.perf_counter() - t2}}), flush=True)
+    return launches
+
+
+def kick_draw(torch, step, rank, device):
+    """The fleet's kick noise for (step, rank) at ``KICK_DRAW``: the key
+    folded as ``FleetRunner.step`` folds it, then the bits, uniforms and
+    normals of ``utils/prng.py``."""
+    from robot_mpcs_tpu_torch.parallel.fleet import KICK_SEED
+    from robot_mpcs_tpu_torch.utils import prng
+
+    step = torch.tensor(step, dtype=torch.int32, device=device)
+    key = prng.fold_in(prng.fold_in(prng.prng_key(KICK_SEED, device=device), step), rank)
+    return key, prng.random_bits(key, KICK_DRAW), prng.uniform(key, KICK_DRAW), prng.normal(key, KICK_DRAW)
+
+
+def kick_fleet_run(torch, device, batch=KICK_BATCH, steps=KICK_STEPS):
+    """The bench's panda scenario (the port's ``bench._scenario_for``) at
+    ``batch`` lanes, the default rescue tier and the kick after
+    ``KICK_AFTER`` steps, for ``steps`` steps on ``device``. Returns per
+    step its metrics, its kicked lanes and the largest difference between
+    the noise a kicked lane got (its warm start less the unkicked shift) and
+    the CPU's draw for the same key."""
+    from robot_mpcs_tpu_torch import bench as tbench
+    from robot_mpcs_tpu_torch.parallel.fleet import KICK_SEED, FleetRunner
+    from robot_mpcs_tpu_torch.utils import prng
+
+    problem, _ = tbench._load_problem("panda")
+    runner = FleetRunner(problem, batch, device=device, kick_after=KICK_AFTER)
+    scen = runner.to_device(tbench._scenario_for(problem, batch, "panda"))
+    state = runner.init_state(scen)
+    post_step, shifts = runner._post_step, []
+
+    def recording_post_step(*args):
+        out = post_step(*args)
+        shifts.append((out[1].clone(), out[-1].clone()))  # (z_shift, kick) before the noise
+        return out
+
+    runner._post_step = recording_post_step
+    nx, records = problem.dims.nx, []
+    for i in range(steps):
+        t = time.perf_counter()
+        state, metrics = runner.step(state, scen)
+        m = {k: float(v) for k, v in metrics._asdict().items()}  # synchronizes
+        step_ms = (time.perf_counter() - t) * 1e3
+        z_shift, kick = shifts[-1]
+        kicked = int(kick.sum())
+        noise_err = None
+        if kicked:
+            want = prng.normal(prng.fold_in(prng.fold_in(prng.prng_key(KICK_SEED), i), 0),
+                               tuple(z_shift[..., nx:].shape))
+            got = (state.z_warm[..., nx:] - z_shift[..., nx:]).cpu()
+            k = kick.cpu()
+            noise_err = float((got[k] - want[k]).abs().max())
+            check(bool((got[~k] == 0).all()), f"kick fleet step {i}: noise on lanes not kicked")
+        records.append({"kick_step": i, "step_ms": step_ms, "kicked": kicked,
+                        "noise_vs_cpu_draw": noise_err, **{k: m[k] for k in (
+                            "converged_fraction", "mean_goal_distance", "mean_iterations",
+                            "max_violation_converged", "rescue_overflow_fraction")}})
+        print(json.dumps(records[-1]), flush=True)
+        check(all(np.isfinite(v) for v in m.values()), f"non-finite kick fleet metrics at step {i}: {m}")
+    check(bool(torch.isfinite(state.x).all() and torch.isfinite(state.z_warm).all()),
+          "non-finite kick fleet state")
+    return records
+
+
+def kick_phase(torch, rp):
+    """The kick's noise on the card: ``utils/prng.py``'s draw on the card
+    equal to the CPU's bit for bit at ``KICK_DRAW`` for ``KICK_KEYS``, the
+    device events and time of one fleet step's draw at that shape; then the kick fleet (``kick_fleet_run``) read
+    with its own launch counts: lanes kicked, each kicked lane's noise the
+    CPU's draw within 1e-5, converged >= 0.9 at the last step, the
+    structured kernel launched at B=1024 and 128. Returns those launches."""
+    t0 = time.perf_counter()
+    for step, rank in KICK_KEYS:
+        card = [v.cpu() for v in kick_draw(torch, step, rank, "cuda")]
+        host = kick_draw(torch, step, rank, "cpu")
+        for name, a, b in zip(("key", "bits", "uniform", "normal"), card, host):
+            same = torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
+                               b.view(torch.int32) if b.dtype == torch.float32 else b)
+            check(same, f"kick draw (step {step}, rank {rank}): the card's {name} differ from the CPU's")
+    print(f"kick draw on the card equals the CPU's bit for bit at {KICK_DRAW} for (step, rank) in "
+          f"{KICK_KEYS}", flush=True)
+    from robot_mpcs_tpu_torch.parallel.fleet import KICK_SEED
+    from robot_mpcs_tpu_torch.utils import prng
+
+    # what a fleet step of B=4096 draws: the key folded on the step and the
+    # rank, then the normals
+    key, step = prng.prng_key(KICK_SEED, device="cuda"), torch.tensor(25, dtype=torch.int32, device="cuda")
+    draw = lambda: prng.normal(prng.fold_in(prng.fold_in(key, step), 0), KICK_DRAW)  # noqa: E731
+    draw()
+    _, total = profile_windows(torch, {"kick draw": draw}, [])
+    draw_ms = time_ms(draw, torch)
+    print(json.dumps({"kick_draw": list(KICK_DRAW), "device_events": total["device_events"],
+                      "device_busy_ms": total["device_busy_ms"], "call_ms": draw_ms}), flush=True)
+    rp.riccati_backward_packed.launches = 0
+    with launches_by_batch(KICK_STEPS) as tally:
+        records = kick_fleet_run(torch, "cuda")
+    launches = rp.riccati_backward_packed.launches
+    batches = {B for name, B in tally if name == "riccati_backward_packed"}
+    kicked = sum(r["kicked"] for r in records)
+    errs = [r["noise_vs_cpu_draw"] for r in records if r["noise_vs_cpu_draw"] is not None]
+    check(kicked > 0, "no lane of the kick fleet was kicked")
+    check(max(errs) <= 1e-5, f"kicked lanes' noise differs from the CPU draw by {max(errs):.3e}")
+    check(records[-1]["converged_fraction"] >= 0.9,
+          f"kick fleet converged_fraction {records[-1]['converged_fraction']} < 0.9")
+    check(records[-1]["max_violation_converged"] <= 1e-4, "kick fleet: converged lanes violate constraints")
+    check({KICK_BATCH, KICK_BATCH // 8} <= batches,
+          f"the kick fleet launched the structured kernel at B = {sorted(batches)}")
+    print(json.dumps({"kick_phase": {"kicked": kicked, "noise_vs_cpu_draw": max(errs), "launches": launches,
+                                     "phase_s": time.perf_counter() - t0}}), flush=True)
     return launches
 
 
@@ -1982,6 +2116,8 @@ def main() -> int:
     print(f"group path done at {time.perf_counter() - t0:.1f} s", flush=True)
     batched["launches"] = mobile_phase(torch, rb)
     print(f"mobile panda path done at {time.perf_counter() - t0:.1f} s", flush=True)
+    kick = kick_phase(torch, rp)
+    print(f"kick path done at {time.perf_counter() - t0:.1f} s", flush=True)
     planner_phase(torch, rp, rb)
     print(f"planner path done at {time.perf_counter() - t0:.1f} s", flush=True)
     examples = examples_phase(torch, rp, rb)
@@ -2001,7 +2137,7 @@ def main() -> int:
 
     # launches is the main path's count; each path's own beside it
     packed["launches_by_path"] = {"panda fleet": packed["launches"], "group": group_packed,
-                                  "6-dof chain (B=64)": chain,
+                                  "kick fleet (B=1024)": kick, "6-dof chain (B=64)": chain,
                                   **sharded, **reference_form, **examples["riccati_backward_packed"],
                                   **deploy.get("riccati_backward_packed", {}),
                                   **bench["riccati_backward_packed"]}

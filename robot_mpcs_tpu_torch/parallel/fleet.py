@@ -33,10 +33,11 @@ from robot_mpcs_tpu_torch.config import SolverConfiguration
 from robot_mpcs_tpu_torch.models.problem import MpcProblem
 from robot_mpcs_tpu_torch.parallel.mesh import Mesh, shard_batch
 from robot_mpcs_tpu_torch.solver.types import SolveResult
+from robot_mpcs_tpu_torch.utils import prng
 from robot_mpcs_tpu_torch.utils.devices import resolve_device
 
-#: seed of the local-minimum kick noise; rank r draws at step t from
-#: seed + t + r * 2**32 (rank 0: seed + t)
+#: seed of the local-minimum kick noise: rank r draws at step t from
+#: ``fold_in(fold_in(PRNGKey(KICK_SEED), t), r)``, the JAX fleet's key
 KICK_SEED = 0x5EED
 
 
@@ -178,7 +179,7 @@ class FleetRunner:
         self._plant = problem.dynamics  # plant = model (kinematic fidelity)
         pm = problem.param_map
         self._goal = pm.entries.get("goal")
-        self._gen = torch.Generator(device=self.device)
+        self._kick_key = prng.prng_key(KICK_SEED, device=self.device)
 
     # ------------------------------------------------------------ pieces
 
@@ -328,14 +329,11 @@ class FleetRunner:
         if self._kick_scale > 0.0:
             # randomized restart for plateaued lanes: zero-mean noise on the
             # warm start's [s, u] entries — the slack entries too, exactly
-            # as fleet.py:457 of the JAX package adds it. The noise depends
-            # on the step and the rank (JAX folds both into its key);
-            # torch's generator draws other numbers than jax.random.
-            self._gen.manual_seed(KICK_SEED + int(state.step) + (self.mesh.rank << 32))
-            noise = self._kick_scale * torch.randn(
-                z_shift[..., dims.nx :].shape, generator=self._gen,
-                dtype=z_shift.dtype, device=self.device,
-            )
+            # as fleet.py:457 of the JAX package adds it. The noise is
+            # jax.random's draw from the key folded on the step (a device
+            # tensor, no host read) and the rank (JAX's axis_index).
+            key = prng.fold_in(prng.fold_in(self._kick_key, state.step), self.mesh.rank)
+            noise = self._kick_scale * prng.normal(key, z_shift[..., dims.nx :].shape)
             z_shift = z_shift.clone()
             z_shift[..., dims.nx :] += torch.where(kick[:, None, None], noise, 0.0)
         metrics = self._metrics(res, was_reset, gdist, overflow, bad_total)

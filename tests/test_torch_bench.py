@@ -18,7 +18,8 @@ Tolerances, and why:
   another order; mean goal distance within 2%; converged lanes feasible to
   the solver's tol_constraint 1e-4). Both runners use ``bench.py``'s
   defaults: at B=32 the 1/8 rescue tier has 4 < 8 slots and is off in both,
-  and the kick cannot fire within 25 steps.
+  and the kick cannot fire within 25 steps (where it fires, both packages
+  draw the same noise: ``tests/test_torch_fleet_kick.py``).
 """
 
 import ast

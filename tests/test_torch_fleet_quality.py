@@ -7,8 +7,9 @@ closed-loop steps with the default rescue tier and the warm-start kick)
 through the port's ``FleetRunner``, under the same bars: zero resets,
 ``mean_goal_distance`` < 0.1, converged fraction > 0.95 and at most 2 of 64
 lanes more than 0.2 m from their goal, with the arms clear of themselves and
-of the obstacle. Behaviour is compared, not trajectories: the kick draws its
-noise from a ``torch.Generator``, not from JAX's PRNG.
+of the obstacle. Behaviour is compared, not trajectories: the kick draws
+``jax.random``'s noise (``utils/prng.py``), but over 300 steps the f32
+differences of the two solvers decide which lanes plateau and when.
 
     python -m pytest tests/test_torch_fleet_quality.py -m slow -q                  # CPU
     python -m pytest tests/test_torch_fleet_quality.py -m "slow and gpu" -q --noconftest  # card

@@ -552,6 +552,34 @@ def test_mobile_panda_fleet_on_card():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("step,rank", chip_smoke.KICK_KEYS)
+def test_kick_draw_on_card_equals_cpu(step, rank):
+    """The kick's key, bits, uniforms and normals (``utils/prng.py``) on the
+    card equal the CPU's bit for bit: integer ops, float32 ops that round
+    alike, and ``log1p`` in float64 rounded once."""
+    _need_card()
+    card = chip_smoke.kick_draw(torch, step, rank, "cuda")
+    host = chip_smoke.kick_draw(torch, step, rank, "cpu")
+    for a, b in zip(card, host):
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        a = a.cpu()
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_kick_fleet_on_card():
+    """The kick fleet (B=256, 3 steps, kick after 2): lanes kicked at step 2
+    with the CPU's draw, through the structured kernel at B=256 and 32."""
+    _need_card()
+    with chip_smoke.launches_by_batch(3) as tally:
+        records = chip_smoke.kick_fleet_run(torch, "cuda", batch=256, steps=3)
+    assert records[2]["kicked"] > 0 and records[2]["noise_vs_cpu_draw"] <= 1e-5
+    assert {B for name, B in tally if name == "riccati_backward_packed"} == {256, 32}
+
+
+@pytest.mark.gpu
 def test_ros_logic_on_card():
     _need_card()
     before = rb.riccati_backward_batched.launches

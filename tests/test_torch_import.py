@@ -34,8 +34,8 @@ assert not any(m == "jax" or m.startswith(("jax.", "robot_mpcs_tpu.")) for m in 
 print(" ".join(names))
 """
 
-#: the modules of the planner, sharded-fleet, examples / artifact and
-#: benchmark slices, each of which must be among them
+#: the modules of the planner, sharded-fleet, examples / artifact,
+#: benchmark and kick-noise slices, each of which must be among them
 SLICE_MODULES = [
     "planner.mpc_planner", "planner.visualizer", "sim.kinematic_sim",
     "perception.free_space_decomposition", "global_planner.astar", "global_planner.grid_map",
@@ -44,7 +44,7 @@ SLICE_MODULES = [
     "utils.aot", "utils.compile_cache", "examples.mpc_example", "examples.point_robot_example",
     "examples.panda_example", "examples.boxer_example", "examples.boxer_example_global",
     "examples.boxer_example_supermarket", "examples.make_solver", "examples.urdfenvs_adapter",
-    "ros_bridge.mpc_planner_node", "ros_bridge.make_solver", "bench",
+    "ros_bridge.mpc_planner_node", "ros_bridge.make_solver", "bench", "utils.prng",
 ]
 
 
