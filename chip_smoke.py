@@ -583,29 +583,22 @@ def batched_kernel_phase(torch, rb, shapes):
 
 @contextlib.contextmanager
 def launches_by_batch(steps):
-    """Tally the solver's kernel launches by kernel and batch size while the
-    block runs (its references to both wrappers are wrapped, and restored
-    after), and print them per step."""
-    from robot_mpcs_tpu_torch.solver import al_ilqr
+    """Tally the kernel wrappers' launches by kernel and batch size while the
+    block runs (a listener of ``_build.count_launch``, which sees eager
+    launches and the launches a CUDA graph replays alike), and print them per
+    step."""
+    from robot_mpcs_tpu_torch.ops import _build
 
     tally = collections.Counter()
-    originals = {n: getattr(al_ilqr, n) for n in ("riccati_backward_packed", "riccati_backward_batched")}
 
-    def tallied(name, fn):
-        def wrapped(lx, *args, **kw):
-            before = fn.launches
-            out = fn(lx, *args, **kw)
-            tally[(name, lx.shape[0])] += fn.launches - before
-            return out
-        return wrapped
+    def listen(op, batch):
+        tally[(op.__name__, batch)] += 1
 
-    for name, fn in originals.items():
-        setattr(al_ilqr, name, tallied(name, fn))
+    _build.launch_listeners.append(listen)
     try:
         yield tally
     finally:
-        for name, fn in originals.items():
-            setattr(al_ilqr, name, fn)
+        _build.launch_listeners.remove(listen)
     per_step = collections.defaultdict(dict)
     for (name, B), count in sorted(tally.items()):
         per_step[name][str(B)] = count / steps
@@ -1153,7 +1146,7 @@ def planner_run(kind, device, cap, replay=PLANNER_REPLAY):
     sc = planner_scenario(kind, device)
     planner, sim = sc["planner"], sc["sim"]
     state = sim.reset(sc["x0"])
-    rec = {"solve_ms": [], "fsd_ms": [], "flags": [], "replay": [], "reached_at": None,
+    rec = {"solve_ms": [], "fsd_ms": [], "flags": [], "actions": [], "replay": [], "reached_at": None,
            "min_clearance": None}
     exitflag, output = -1, {}
     for step in range(cap):
@@ -1171,6 +1164,7 @@ def planner_run(kind, device, cap, replay=PLANNER_REPLAY):
         action, output, exitflag = planner.computeAction(*obs)
         rec["solve_ms"].append((time.perf_counter() - t) * 1e3)
         rec["flags"].append(exitflag)
+        rec["actions"].append(np.asarray(action))
         check(exitflag >= 0, f"{kind} planner on {device}: exitflag {exitflag} at step {step}")
         check(bool(np.all(np.isfinite(action))), f"{kind} planner: non-finite action at step {step}")
         if step < replay:
@@ -1810,7 +1804,6 @@ def deploy_child(torch, solver_dir, kind, out):
     solve, the kernel libraries loaded, any warnings, and the seconds of the
     CUDA context's start, of the planner's construction, of its first solve
     and of a second solve of the same state."""
-    import shutil
     import warnings
 
     t0 = time.perf_counter()
@@ -1819,12 +1812,7 @@ def deploy_child(torch, solver_dir, kind, out):
     from robot_mpcs_tpu_torch.ops import _build
     from robot_mpcs_tpu_torch.planner import MPCPlanner
 
-    if os.environ.get("ROBOT_MPCS_DEPLOY_NVCC") == "none":
-        def unreachable():
-            raise SmokeFailure("nvcc was called")
-
-        check(shutil.which("nvcc") is None, "nvcc is on PATH")
-        _build.nvcc = unreachable
+    block_nvcc()
     mpc = MpcProblem.from_solver_dir(solver_dir).setup.mpc
     times = [time.perf_counter()]
     torch.zeros(1, device="cuda")
@@ -1851,17 +1839,36 @@ def deploy_child(torch, solver_dir, kind, out):
     return 0
 
 
+def block_nvcc():
+    """In a child started with ``no_nvcc_env``: check that ``nvcc`` is not
+    on ``PATH`` and make ``_build.nvcc`` raise."""
+    import shutil
+
+    from robot_mpcs_tpu_torch.ops import _build
+
+    if os.environ.get("ROBOT_MPCS_DEPLOY_NVCC") == "none":
+        def unreachable():
+            raise SmokeFailure("nvcc was called")
+
+        check(shutil.which("nvcc") is None, "nvcc is on PATH")
+        _build.nvcc = unreachable
+
+
+def no_nvcc_env(tmp, cache):
+    """A child's environment with the kernel cache ``cache`` and ``nvcc``
+    unreachable: not on ``PATH``, ``CUDA_HOME`` nowhere, ``block_nvcc`` on."""
+    path = [d for d in os.environ.get("PATH", "").split(os.pathsep)
+            if d and not os.path.exists(os.path.join(d, "nvcc"))]
+    return dict(os.environ, ROBOT_MPCS_TPU_CACHE=cache, PATH=os.pathsep.join(path),
+                CUDA_HOME=os.path.join(tmp, "no_cuda_home"), ROBOT_MPCS_DEPLOY_NVCC="none")
+
+
 def run_deploy_child(solver_dir, kind, tmp, label, nvcc):
     """Run ``deploy_child`` in a process of its own with an empty kernel
     cache; ``nvcc=False`` strips it from the process. Returns its record
     and the cache directory."""
     cache = os.path.join(tmp, f"cache_{label}")
-    env = dict(os.environ, ROBOT_MPCS_TPU_CACHE=cache)
-    if not nvcc:
-        path = [d for d in env.get("PATH", "").split(os.pathsep)
-                if d and not os.path.exists(os.path.join(d, "nvcc"))]
-        env.update(PATH=os.pathsep.join(path), CUDA_HOME=os.path.join(tmp, "no_cuda_home"),
-                   ROBOT_MPCS_DEPLOY_NVCC="none")
+    env = dict(os.environ, ROBOT_MPCS_TPU_CACHE=cache) if nvcc else no_nvcc_env(tmp, cache)
     out = os.path.join(tmp, f"{label}.json")
     proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--deploy-child", solver_dir, kind, out],
                           env=env, capture_output=True, text=True, timeout=DEPLOY_TIMEOUT_S)
@@ -2002,6 +2009,256 @@ def deploy_phase(torch, rp, rb):
     return {k: {"ros node": n} for k, n in launches.items() if n}
 
 
+#: the graph phase: the panda fleet's steps graphed and eager from one
+#: state, boxer's and the mobile panda's, the planners' B=1 solves, and the
+#: fleet artifact's child (``--fleet-child``)
+GRAPH_STEPS = 6
+GRAPH_SIDE_STEPS = 2
+GRAPH_SIDE_BATCH = 1024
+GRAPH_PLANNER_SOLVES = 20
+FLEET_CHILD_TIMEOUT_S = 300
+
+
+def fleet_trace(torch, runner, scen, steps, eager):
+    """``steps`` synchronized steps of ``runner`` from the scenario's initial
+    state, with the solver's units replayed as CUDA graphs or, with
+    ``eager``, run eagerly (the solver's private switch). Returns per step
+    the state (on the CPU), the exit flags and the metrics, the wall ms, the
+    launches by (kernel, B), the peak memory allocated and the growth of the
+    memory reserved."""
+    from robot_mpcs_tpu_torch.solver import units
+
+    flags, post = [], runner._post_step
+
+    def recorded(state, scenario, res):
+        flags.append(res.exitflag.clone())
+        return post(state, scenario, res)
+
+    runner._post_step = recorded
+    state = runner.init_state(scen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reserved = torch.cuda.memory_reserved()
+    out = {"states": [], "metrics": [], "ms": []}
+    with (units._eager() if eager else contextlib.nullcontext()), launches_by_batch(steps) as tally:
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = runner.step(state, scen)
+            torch.cuda.synchronize()
+            out["ms"].append((time.perf_counter() - t) * 1e3)
+            out["states"].append({k: v.cpu() for k, v in state._asdict().items()})
+            out["metrics"].append({k: float(v) for k, v in m._asdict().items()})
+    del runner._post_step  # the class's method again, no reference cycle
+    out.update(flags=[f.cpu() for f in flags], launches=dict(tally),
+               peak_allocated_mb=torch.cuda.max_memory_allocated() / 2**20,
+               reserved_growth_mb=(torch.cuda.memory_reserved() - reserved) / 2**20, state=state)
+    return out
+
+
+def hold_traces(torch, label, eager, graphed):
+    """The graphed run against the eager one, step by step: states, exit
+    flags and metrics bit for bit, else within 1e-6 with every flag equal;
+    launches by (kernel, B) equal. Returns the largest state difference."""
+    worst, bitwise = 0.0, True
+    for i, (se, sg) in enumerate(zip(eager["states"], graphed["states"])):
+        check(torch.equal(eager["flags"][i], graphed["flags"][i]), f"{label}: exit flags differ at step {i}")
+        for k in se:
+            if not torch.equal(se[k], sg[k]):
+                bitwise = False
+                check(se[k].dtype.is_floating_point, f"{label}: {k} differs at step {i}")
+                worst = max(worst, float((se[k] - sg[k]).abs().max()))
+        me, mg = eager["metrics"][i], graphed["metrics"][i]
+        if me != mg:
+            bitwise = False
+            worst = max(worst, max(abs(me[k] - mg[k]) for k in me))
+    check(worst <= 1e-6, f"{label}: graphed and eager runs differ by {worst:.3e}")
+    check(eager["launches"] == graphed["launches"],
+          f"{label}: launches {graphed['launches']} graphed, {eager['launches']} eager")
+    print(json.dumps({"graphs_vs_eager": label, "bit_for_bit": bitwise, "max_abs_diff": worst,
+                      "eager_step_ms": eager["ms"], "graphed_step_ms": graphed["ms"],
+                      "eager_peak_allocated_mb": eager["peak_allocated_mb"],
+                      "graphed_peak_allocated_mb": graphed["peak_allocated_mb"],
+                      "eager_reserved_growth_mb": eager["reserved_growth_mb"],
+                      "graphed_reserved_growth_mb": graphed["reserved_growth_mb"],
+                      "last_metrics": graphed["metrics"][-1]}), flush=True)
+    return worst
+
+
+def graph_fleet(torch, label, problem, scenario, batch, steps, **runner_kw):
+    """One fleet, eager then graphed from the same scenario (each a runner of
+    its own, so the graphed one captures at its first step); held by
+    ``hold_traces``. Returns (graphed trace, graphed runner, scenario on the
+    card)."""
+    import gc
+
+    from robot_mpcs_tpu_torch.parallel.fleet import FleetRunner
+
+    traces = {}
+    for mode in ("eager", "graphed"):
+        runner = FleetRunner(problem, batch, device="cuda", **runner_kw)
+        scen = runner.to_device(scenario)
+        traces[mode] = fleet_trace(torch, runner, scen, steps, eager=mode == "eager")
+        if mode == "eager":
+            del runner
+            gc.collect()
+            torch.cuda.empty_cache()
+    hold_traces(torch, label, traces["eager"], traces["graphed"])
+    return traces["graphed"], runner, scen
+
+
+def fleet_child(torch, artifact, out):
+    """A fresh process (``--fleet-child``) that steps the bench's panda fleet
+    once from ``FleetRunner(..., artifact_dir=artifact)`` with ``nvcc``
+    unreachable (``ROBOT_MPCS_DEPLOY_NVCC=none``); writes its state, the
+    libraries loaded, any warnings and the seconds to the first step."""
+    import warnings
+
+    t0 = time.perf_counter()
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from robot_mpcs_tpu_torch import bench as tbench
+    from robot_mpcs_tpu_torch import interop
+    from robot_mpcs_tpu_torch.ops import _build
+    from robot_mpcs_tpu_torch.parallel.fleet import FleetRunner
+
+    block_nvcc()
+    problem, _ = tbench._load_problem("panda")
+    times = [time.perf_counter()]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        runner = FleetRunner(problem, BATCH, device="cuda", artifact_dir=artifact)
+        scen = runner.to_device(tbench._scenario_for(problem, BATCH, "panda"))
+        state = runner.init_state(scen)
+        times.append(time.perf_counter())
+        state, metrics = runner.step(state, scen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter())
+    np.savez(out + ".npz", **interop.state_to_numpy(state))
+    with open(out, "w") as f:
+        json.dump({"libraries": {stem: lib._name for (stem, _), lib in _build._libs.items()},
+                   "warnings": [str(w.message) for w in caught],
+                   "metrics": {k: float(v) for k, v in metrics._asdict().items()},
+                   "import_s": times[0] - t0, "construct_s": times[1] - times[0],
+                   "first_step_s": times[2] - times[1], "to_first_step_s": times[2] - t0}, f)
+    return 0
+
+
+def fleet_artifact_check(torch, runner, first):
+    """``export_step`` of the graphed panda runner, then ``fleet_child`` with
+    ``nvcc`` unreachable: it loads the exported library, builds nothing, and
+    its first step equals ``first`` (this process's graphed first step) bit
+    for bit. Returns the child's record."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    artifact = os.path.join(tmp, "fleet")
+    t = time.perf_counter()
+    meta = runner.export_step(artifact)
+    export_s = time.perf_counter() - t
+    stem = runner._solve.riccati_kernel
+    check(os.path.isfile(os.path.join(artifact, f"lib{stem}.so")), "export_step wrote no library")
+    cache = os.path.join(tmp, "cache")
+    out = os.path.join(tmp, "child.json")
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--fleet-child", artifact, out],
+                          env=no_nvcc_env(tmp, cache), capture_output=True, text=True,
+                          timeout=FLEET_CHILD_TIMEOUT_S)
+    child_s = time.perf_counter() - t
+    for line in (proc.stdout + proc.stderr).splitlines()[-10:]:
+        print(f"[fleet child] {line}", flush=True)
+    check(proc.returncode == 0, f"fleet child exited with {proc.returncode}")
+    with open(out) as f:
+        rec = json.load(f)
+    with np.load(out + ".npz") as data:
+        got = {k: data[k] for k in data.files}
+    check(rec["libraries"] == {stem: os.path.abspath(os.path.join(artifact, f"lib{stem}.so"))},
+          f"the fleet child loaded {rec['libraries']}, not the artifact's library")
+    check(not os.path.exists(cache) or not os.listdir(cache), "the fleet child built a kernel")
+    check(not rec["warnings"] or not any("declining" in w for w in rec["warnings"]),
+          f"the fleet child declined the export: {rec['warnings']}")
+    same = all(np.array_equal(got[k], first[k].numpy()) for k in ("x", "z_warm", "lam", "stall",
+                                                                  "best_gdist", "no_improve"))
+    print(json.dumps({"fleet_artifact": os.path.basename(meta), "export_s": export_s, "child_process_s": child_s,
+                      "first_step_equal": same, **rec, "libraries": list(rec["libraries"])}), flush=True)
+    check(same, "the fleet child's first step differs from this process's")
+    shutil.rmtree(tmp)
+    return rec
+
+
+def graph_phase(torch, rp, rb):
+    """The solver's units captured as CUDA graphs against the same units run
+    eagerly (``units._eager``), at the main paths' widths:
+
+    1. the bench's panda fleet (B=4096, default rescue tier and kick) for
+       ``GRAPH_STEPS`` steps: states, exit flags and metrics bit for bit
+       (else within 1e-6 with flags equal), launches by (kernel, B) equal and
+       printed a step (16 at 4096 + 50 at 512 where every loop runs to its
+       budget); wall ms, peak memory of both, then one
+       profiled graphed step (device busy, idle share, graph replays);
+    2. the bench's boxer fleet and the mobile panda fleet at B=1024 for
+       ``GRAPH_SIDE_STEPS`` steps each, the same checks (the general kernel);
+    3. the panda and boxer planners at B=1, ``GRAPH_PLANNER_SOLVES`` solves
+       of one closed loop each: actions and flags equal, p50 / p90 ms of both;
+    4. ``FleetRunner.export_step`` of the graphed panda runner, then a child
+       process without ``nvcc`` that steps from ``artifact_dir``
+       (``fleet_artifact_check``).
+
+    Returns the graphed panda fleet's launches by kernel."""
+    from robot_mpcs_tpu_torch import bench as tbench
+    from robot_mpcs_tpu_torch.config import Setup
+    from robot_mpcs_tpu_torch.models.problem import MpcProblem
+    from robot_mpcs_tpu_torch.parallel.fleet import random_fleet_scenario
+    from robot_mpcs_tpu_torch.solver import units
+
+    t0 = time.perf_counter()
+    problem, _ = tbench._load_problem("panda")
+    scenario = tbench._scenario_for(problem, BATCH, "panda")
+    trace, runner, scen = graph_fleet(torch, "panda fleet B=4096", problem, scenario, BATCH, GRAPH_STEPS)
+    # equal to the eager run's (hold_traces); at scale every loop runs to its
+    # budget: 16 launches a step at B=4096 (2 AL x 8 iLQR) and 50 at 512 (5 x 10)
+    check(set(trace["launches"]) == {("riccati_backward_packed", BATCH), ("riccati_backward_packed", BATCH // 8)},
+          f"graphed panda fleet launched at {sorted(trace['launches'])}")
+    check(trace["metrics"][-1]["converged_fraction"] >= 0.9, "graphed panda fleet: converged < 0.9")
+    replays = units.replays
+    _, total = profile_windows(torch, {"graphed step": lambda: runner.step(trace["state"], scen)},
+                               ["riccati_packed_kernel"])
+    print(json.dumps({"graphed_profiled_step_ms": total["wall_ms"], "device_events": total["device_events"],
+                      "device_busy_ms": total["device_busy_ms"],
+                      "riccati_kernel_ms": total["riccati_packed_kernel_ms"],
+                      "idle_share_in_profiled_step": total["idle_share"],
+                      "graph_replays": units.replays - replays}), flush=True)
+    launches = {"riccati_backward_packed": sum(trace["launches"].values())}
+    fleet_artifact_check(torch, runner, trace["states"][0])
+    t1 = time.perf_counter()
+
+    boxer, _ = tbench._load_problem("boxer")
+    graph_fleet(torch, "boxer fleet B=1024", boxer, tbench._scenario_for(boxer, GRAPH_SIDE_BATCH, "boxer"),
+                GRAPH_SIDE_BATCH, GRAPH_SIDE_STEPS)
+    mobile = MpcProblem(Setup.from_dict(mobile_panda_setup()))
+    graph_fleet(torch, "mobile panda fleet B=1024", mobile,
+                random_fleet_scenario(mobile, GRAPH_SIDE_BATCH, seed=0, **MOBILE_SAMPLER),
+                GRAPH_SIDE_BATCH, GRAPH_SIDE_STEPS, kick_scale=0.0)
+    t2 = time.perf_counter()
+
+    for kind in ("panda", "boxer"):
+        runs = {}
+        for mode in ("eager", "graphed"):
+            with units._eager() if mode == "eager" else contextlib.nullcontext():
+                runs[mode] = planner_run(kind, "cuda", GRAPH_PLANNER_SOLVES, replay=0)[1]
+        e, g = runs["eager"], runs["graphed"]
+        same = len(e["actions"]) == len(g["actions"]) and all(
+            np.array_equal(a, b) for a, b in zip(e["actions"], g["actions"]))
+        print(json.dumps({"planner_graphs_vs_eager": kind, "solves": len(g["actions"]),
+                          "actions_equal": same, "flags_equal": e["flags"] == g["flags"],
+                          "eager_ms": percentiles(e["solve_ms"]), "graphed_ms": percentiles(g["solve_ms"])}),
+              flush=True)
+        check(same and e["flags"] == g["flags"], f"{kind} planner: graphed and eager actions differ")
+    print(json.dumps({"graph_phase_s": {"panda": t1 - t0, "boxer_mobile": t2 - t1,
+                                        "planners": time.perf_counter() - t2}}), flush=True)
+    return launches
+
+
 #: the benchmark child's settings: panda at full width, few steps, both
 #: extras on under a budget they fit in
 BENCH_ENV = dict(BENCH_BATCH=str(BATCH), BENCH_STEPS="3", BENCH_WARMUP_MAX="3",
@@ -2086,6 +2343,8 @@ def main() -> int:
         return dist_worker(torch, sys.argv[2])
     if len(sys.argv) > 1 and sys.argv[1] == "--deploy-child":
         return deploy_child(torch, *sys.argv[2:5])
+    if len(sys.argv) > 1 and sys.argv[1] == "--fleet-child":
+        return fleet_child(torch, *sys.argv[2:4])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
@@ -2112,6 +2371,8 @@ def main() -> int:
     print(f"kernel phases done at {time.perf_counter() - t0:.1f} s", flush=True)
     panda, panda_scenario, packed["launches"], panda_state, panda_scen = path_phase(torch, rp)
     print(f"panda path done at {time.perf_counter() - t0:.1f} s", flush=True)
+    graphs = graph_phase(torch, rp, rb)
+    print(f"graph phase done at {time.perf_counter() - t0:.1f} s", flush=True)
     boxer, boxer_scenario, group_packed, group_batched = group_phase(torch, rp, rb)
     print(f"group path done at {time.perf_counter() - t0:.1f} s", flush=True)
     batched["launches"] = mobile_phase(torch, rb)
@@ -2137,6 +2398,7 @@ def main() -> int:
 
     # launches is the main path's count; each path's own beside it
     packed["launches_by_path"] = {"panda fleet": packed["launches"], "group": group_packed,
+                                  "graph phase, panda fleet (graphed)": graphs["riccati_backward_packed"],
                                   "kick fleet (B=1024)": kick, "6-dof chain (B=64)": chain,
                                   **sharded, **reference_form, **examples["riccati_backward_packed"],
                                   **deploy.get("riccati_backward_packed", {}),

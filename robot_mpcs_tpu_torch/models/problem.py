@@ -386,13 +386,23 @@ class MpcProblem:
         dims = self.dims
         pm = self.param_map
         rows = self.bound_rows()
-        idx = torch.as_tensor([r[0] for r in rows], dtype=torch.int64)
+        idx = np.array([r[0] for r in rows], np.int64)
         sign = np.array([r[1] for r in rows], np.float32)
         bnd = np.array([r[2] for r in rows], np.float32)
+        consts = {}
 
         def bound_rows(z):
-            t = lambda a: torch.as_tensor(a, dtype=z.dtype, device=z.device)
-            return t(sign) * (torch.index_select(z, -1, idx.to(z.device)) - t(bnd))
+            # copied to the device once: a solve captured as a CUDA graph
+            # makes no host-to-device copy
+            key = (z.dtype, z.device)
+            if key not in consts:
+                consts[key] = (
+                    torch.as_tensor(idx, device=z.device),
+                    torch.as_tensor(sign, dtype=z.dtype, device=z.device),
+                    torch.as_tensor(bnd, dtype=z.dtype, device=z.device),
+                )
+            i, sg, bd = consts[key]
+            return sg * (torch.index_select(z, -1, i) - bd)
 
         def cost(x, w, p):
             return self.stage_objective(torch.cat([x, w], -1), p)

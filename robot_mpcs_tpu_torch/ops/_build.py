@@ -19,6 +19,7 @@ to the scan for a CUDA tensor.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -28,7 +29,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -52,6 +53,36 @@ SHAPE_FIELDS = {"riccati_packed": ("nx", "nw", "ns"), "riccati_batched": ("nx", 
 SM90_SHARED_OPTIN = 232448
 
 _libs: Dict[Tuple[str, tuple], ctypes.CDLL] = {}
+#: callables ``fn(op, batch)`` told of each launch a wrapper counts
+launch_listeners: List[Callable] = []
+#: the launches recorded while a CUDA graph is captured, else None
+_captured: Optional[list] = None
+
+
+def count_launch(op, batch: int) -> None:
+    """Count one launch of the kernel wrapper ``op`` at batch size
+    ``batch`` in ``op.launches`` and tell ``launch_listeners``. While a CUDA
+    graph is captured (``recording_launches``) the launch is only recorded:
+    nothing ran, and each replay of the graph counts it
+    (``solver/units.py``)."""
+    if _captured is not None:
+        _captured.append((op, int(batch)))
+        return
+    op.launches += 1
+    for fn in launch_listeners:
+        fn(op, int(batch))
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Record, instead of counting, the launches made in the block; yields
+    the list of ``(op, batch)`` it fills."""
+    global _captured
+    before, _captured = _captured, []
+    try:
+        yield _captured
+    finally:
+        _captured = before
 
 
 def team_size(nx: int) -> int:

@@ -158,8 +158,8 @@ def riccati_backward_batched(lx, lw, lxx, lxw, lww, A, Bm, reg, *, N, nx, nw):
     ``(k_ff (B, N, nw), K (B, N, nw, nx), failed (B,) bool)``.
 
     A CUDA tensor launches the CUDA kernel (and counts the launch in
-    ``riccati_backward_batched.launches``); a CPU tensor runs the plain
-    version. Any other device raises.
+    ``riccati_backward_batched.launches`` through ``_build.count_launch``); a CPU
+    tensor runs the plain version. Any other device raises.
     """
     dev = lx.device
     if dev.type == "cpu":
@@ -199,7 +199,7 @@ def riccati_backward_batched(lx, lw, lxx, lxw, lww, A, Bm, reg, *, N, nx, nw):
             stream,
         )
     _build.raise_for_status("riccati_backward_batched", err, "riccati_batched", (nx, nw))
-    riccati_backward_batched.launches += 1
+    _build.count_launch(riccati_backward_batched, Bsz)
     return k_ff, K, failed
 
 

@@ -173,8 +173,8 @@ def riccati_backward_packed(lx, lw, lxx, lxw, lww, reg, *, N, nx, nw, ns, a, b1,
     reg (B,). Returns ``(k_ff (B, N, nw), K (B, N, nw, nx), failed (B,) bool)``.
 
     A CUDA tensor launches the CUDA kernel (and counts the launch in
-    ``riccati_backward_packed.launches``); a CPU tensor runs the plain
-    version. Any other device raises.
+    ``riccati_backward_packed.launches`` through ``_build.count_launch``); a CPU
+    tensor runs the plain version. Any other device raises.
     """
     dev = lx.device
     if dev.type == "cpu":
@@ -208,7 +208,7 @@ def riccati_backward_packed(lx, lw, lxx, lxw, lww, reg, *, N, nx, nw, ns, a, b1,
             float(a), float(b1), float(b2), stream,
         )
     _build.raise_for_status("riccati_backward_packed", err, "riccati_packed", (nx, nw, ns))
-    riccati_backward_packed.launches += 1
+    _build.count_launch(riccati_backward_packed, Bsz)
     return k_ff, K, failed
 
 

@@ -3,8 +3,12 @@
 One ``FleetRunner.step`` advances every scenario by one control step:
 batched AL-iLQR solve, straggler rescue re-solve, action extraction, plant
 integration, shift-horizon warm start, metric reduction. All state lives on
-the runner's ``device``; the only host traffic per step is the solver's
-loop conditions and whatever metrics the caller reads.
+the runner's ``device``. The JAX package jits the whole step; here each
+solve (phase 1 and every rescue tier, each at its own batch size) runs as
+the solver's units captured as CUDA graphs at the first step
+(``solver/units.py``), and the host reads only one loop flag between two
+replays; the rest of the step is eager PyTorch with no host read. Whatever
+metrics the caller reads come back on top.
 
 With a ``mesh`` (``parallel/mesh.py``: one process per card over
 ``torch.distributed``) each rank holds and steps the contiguous shard
@@ -13,10 +17,13 @@ the solver's masked loops, the rescue gather and the post-step stay
 rank-local, and the only cross-rank traffic is one ``all_reduce(SUM)`` and
 one ``all_reduce(MAX)`` of the metrics' numerators, denominators and maxima,
 so every rank returns the same global ``FleetMetrics``. Without a mesh (or
-with a mesh that has no process group) the step runs no collective. AOT
-export and ``artifact_dir`` have no counterpart here. Nothing depends on the
-robot family: holonomic and diff-drive problems differ only inside the
-solver (which Riccati sweep) and the scenario sampler.
+with a mesh that has no process group) the step runs no collective.
+``export_step(path)`` writes the step's compiled part, the kernel library,
+with its fingerprint (``utils/aot.py``); ``FleetRunner(...,
+artifact_dir=path)`` registers it, so a process without ``nvcc`` steps the
+fleet. Nothing depends on the robot family: holonomic and diff-drive
+problems differ only inside the solver (which Riccati sweep) and the
+scenario sampler.
 """
 
 from __future__ import annotations
@@ -99,6 +106,12 @@ class FleetRunner:
     slots come from the rank's batch ``B/W``. Runs on the CUDA card unless
     ``device`` says otherwise (``"cpu"``); with a ``mesh``, on its device.
     ``batch_size`` is the global B and must divide by the mesh size.
+
+    ``artifact_dir``: a directory written by ``export_step`` for a runner of
+    the same batch, mesh width, tiers, stall and kick knobs (fleet.py:127,
+    536-545 of the JAX package). Its kernel library is registered for this
+    process, so the first step builds nothing; a mismatched or unreadable
+    export warns and the kernel is built from the sources.
     """
 
     def __init__(
@@ -115,6 +128,7 @@ class FleetRunner:
         kick_gdist: float = 0.15,
         kick_scale: float = 1.0,
         mesh: Optional[Mesh] = None,
+        artifact_dir: Optional[str] = None,
     ):
         self.problem = problem
         self.dims = problem.dims
@@ -145,7 +159,7 @@ class FleetRunner:
                 if compaction_ratio
                 else []
             )
-        tiers = []
+        tiers, tier_spec = [], []
         for tier in rescue_tiers:
             ratio, al_it, ilqr_it = tier[:3]
             ls = tier[3] if len(tier) > 3 else base_cfg.line_search_steps
@@ -166,7 +180,11 @@ class FleetRunner:
                 line_search_steps=int(ls),
             )
             tiers.append((k, problem.build_solver(cfg_t, device=self.device)))
+            tier_spec.append((int(ratio), int(al_it), int(ilqr_it), int(ls)))
         self._tiers = tiers
+        #: the resolved tier schedule (ratio, al, ilqr, line search): part of
+        #: the artifact's fingerprint (utils/aot.py)
+        self._tier_spec = tier_spec
         cfg1 = (
             dataclasses.replace(
                 base_cfg,
@@ -180,6 +198,22 @@ class FleetRunner:
         pm = problem.param_map
         self._goal = pm.entries.get("goal")
         self._kick_key = prng.prng_key(KICK_SEED, device=self.device)
+        if artifact_dir is not None:
+            from robot_mpcs_tpu_torch.utils.aot import load_fleet_step
+
+            load_fleet_step(self, artifact_dir)
+
+    # ------------------------------------------------------------ artifact
+
+    def export_step(self, path: str) -> str:
+        """Write this runner's compiled part, the kernel library its solves
+        launch, and ``fleet_meta.yaml`` into ``path`` (``utils/aot.py``);
+        returns the metadata file's path. A runner of the same configuration
+        built with ``artifact_dir=path`` needs no ``nvcc``. The CUDA graphs
+        of the solver are captured in each process at its first step."""
+        from robot_mpcs_tpu_torch.utils.aot import export_fleet_step
+
+        return export_fleet_step(self, path)
 
     # ------------------------------------------------------------ pieces
 

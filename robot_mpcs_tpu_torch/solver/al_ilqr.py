@@ -30,6 +30,13 @@ drives (reference ``robotmpcs/models/mpcModel.py:74-129`` builds the problem,
   no lane is active or every lane hit its cap. A lane that is done is frozen
   with ``torch.where`` exactly as JAX's vmapped loop freezes it, so each
   lane's result does not depend on which other lanes share its batch.
+* **Compiled on the card** (the counterpart of ``jax.jit``): each loop
+  body is a unit over a carry preallocated per batch shape
+  (``solver/units.py``). On a CUDA device each unit is captured once as a
+  CUDA graph and replayed; the host only reads the loop flag a unit leaves
+  in the carry between replays, so every lane's iteration count, every
+  kernel launch and the device work are the eager loop's. On the CPU the
+  same units run eagerly.
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ from robot_mpcs_tpu_torch.ops.riccati_packed import (
     riccati_backward_packed,
 )
 from robot_mpcs_tpu_torch.solver.types import SolveResult
+from robot_mpcs_tpu_torch.solver.units import UnitProgram
 from robot_mpcs_tpu_torch.utils.devices import resolve_device
 
 
@@ -455,156 +463,185 @@ def build_solver(
         """Per-lane select: ``mask`` (B,) broadcast over trailing dims."""
         return torch.where(mask.reshape(mask.shape + (1,) * (new.dim() - 1)), new, old)
 
-    # ---------------- inner iLQR loop --------------------------------------
+    # ---------------- the loops as units over a carry -----------------------
+    # Each JAX while_loop body is a unit of ``solver/units.py``: a function of
+    # the carry ``c`` returning the entries it updates, with no host read.
+    # The host loop in ``solve`` reads the ``any_*`` flag a unit leaves
+    # behind, as the eager loop read ``active.any()``. Lanes outside a loop
+    # are frozen with torch.where exactly as JAX's vmapped loop freezes them,
+    # so each lane's result does not depend on the lanes sharing its batch.
 
-    def ilqr(xinit, X, W, P, lam, mu, frozen, gn0):
-        """Inner iLQR on the AL objective (al_ilqr.py:662-835). Lanes in
-        ``frozen`` enter done and keep ``gn0`` as their stationarity measure.
-        Returns (X, W, grad_norm, n_used)."""
-        Bsz = X.shape[0]
-        cost_cur = al_stage_cost(X, W, P, lam, mu)
-        reg = torch.full((Bsz,), cfg.reg_initial, **fdev)
-        done = frozen.clone()
-        grad_norm = gn0.clone()
-        n_used = torch.zeros((Bsz,), dtype=torch.int32, device=dev)
-        it = torch.zeros((Bsz,), dtype=torch.int32, device=dev)
-        while True:
-            active = (it < cfg.max_ilqr_iterations) & ~done
-            if not bool(active.any()):
-                break
-            lx, lw, lxx, lxw, lww = stage_expansion_blocks(X, W, P, lam, mu)
-            k_ff, K, failed = backward(X, W, lx, lw, lxx, lxw, lww, reg)
-            gn_step = torch.amax(torch.abs(k_ff), dim=(1, 2))
-            # tiny Newton step: no search needed (the lane is declared done
-            # below); near-stationary: probe only alpha = 1
-            tiny_step = gn_step < cfg.tol_gradient
-            near_stat = gn_step < cfg.tol_stationarity
-            max_ls = torch.where(near_stat, 1, cfg.line_search_steps)
-
-            # Backtracking line search with early exit (al_ilqr.py:720-755):
-            # largest alpha first, each lane stops at its first improvement.
-            # Lanes that are done, failed, tiny-stepped (or inactive here)
-            # start "accepted" and never search.
-            skip_ls = done | failed | tiny_step | ~active
-            accepted = skip_ls.clone()
-            X_ls, W_ls, cost_ls = X, W, cost_cur
-            ls_it = torch.zeros((Bsz,), dtype=torch.int32, device=dev)
-            while True:
-                searching = (ls_it < max_ls) & ~accepted
-                if not bool(searching.any()):
-                    break
-                alpha = torch.pow(cfg.line_search_decay, ls_it.to(torch.float32))
-                X_c, W_c, cost_c = forward(xinit, X, W, k_ff, K, P, lam, mu, alpha)
-                delta = torch.sum(cost_c - cost_cur, -1)
-                better = searching & torch.isfinite(cost_c).all(-1) & (delta < -1e-9)
-                X_ls = where(better, X_c, X_ls)
-                W_ls = where(better, W_c, W_ls)
-                cost_ls = where(better, cost_c, cost_ls)
-                accepted = accepted | better
-                ls_it = ls_it + searching.to(torch.int32)
-            improved = accepted & ~skip_ls
-            accept = improved & ~failed
-
-            take = accept & ~done
-            X_new = where(take, X_ls, X)
-            W_new = where(take, W_ls, W)
-            cost_new = where(take, cost_ls, cost_cur)
-            # escalate reg only on a genuine failure (bad factorization or a
-            # searched-and-rejected step); a tiny step at HIGH reg decays reg
-            # toward reg_converged_max instead of livelocking
-            escalate = failed | (~improved & ~tiny_step)
-            decay_probe = tiny_step & ~failed & (reg > cfg.reg_converged_max)
-            reg_step = torch.where(
-                accept,
-                torch.clamp(reg * 0.5, min=cfg.reg_min),
-                torch.where(
-                    escalate,
-                    torch.clamp(reg * 10.0, max=cfg.reg_max),
-                    torch.where(decay_probe, torch.clamp(reg * 0.1, min=cfg.reg_min), reg),
-                ),
-            )
-            reg_new = torch.where(done, reg, reg_step)
-            gn = torch.where(done, grad_norm, gn_step)
-            # two-tier stationarity exit (al_ilqr.py:791-813): (a) the Newton
-            # step is below tol_gradient; (b) no improvement was found and
-            # the step is below tol_stationarity (beneath the f32 merit
-            # noise floor). Guarded by an honest factorization and reg.
-            done_new = done | (
-                ~failed
-                & (reg <= cfg.reg_converged_max)
-                & ((gn_step < cfg.tol_gradient) | (~improved & (gn_step < cfg.tol_stationarity)))
-            )
-            n_used_new = n_used + (~done).to(torch.int32)
-
-            X = where(active, X_new, X)
-            W = where(active, W_new, W)
-            cost_cur = where(active, cost_new, cost_cur)
-            reg = torch.where(active, reg_new, reg)
-            done = torch.where(active, done_new, done)
-            grad_norm = torch.where(active, gn, grad_norm)
-            n_used = torch.where(active, n_used_new, n_used)
-            it = it + active.to(torch.int32)
-        return X, W, grad_norm, n_used
-
-    # ---------------- outer AL loop -----------------------------------------
-
-    def solve(xinit, params, z0, lam0=None) -> SolveResult:
-        xinit = torch.as_tensor(xinit, **fdev)
-        P = torch.as_tensor(params, **fdev)
-        z0 = torch.as_tensor(z0, **fdev)
+    def u_prologue(c):
+        """Initial iterate and AL state (al_ilqr.py:839-855)."""
+        xinit = c["xinit"]
         Bsz = xinit.shape[0]
-        W = torch.clamp(z0[..., nx:], w_lb, w_ub)
-        X = rollout(xinit, W)
-        lam = (
-            torch.zeros((Bsz, N, n_con), **fdev)
-            if lam0 is None
-            else torch.as_tensor(lam0, **fdev)
-        )
-        mu = torch.full((Bsz,), cfg.penalty_initial, **fdev)
-        grad_norm = torch.full((Bsz,), float("inf"), **fdev)
-        n_inner = torch.zeros((Bsz,), dtype=torch.int32, device=dev)
-        viol = torch.full((Bsz,), float("inf"), **fdev)
-        finished = torch.zeros((Bsz,), dtype=torch.bool, device=dev)
+        W = torch.clamp(c["z0"][..., nx:], w_lb, w_ub)
         it = torch.zeros((Bsz,), dtype=torch.int32, device=dev)
-        # early exit once feasible + stationary (al_ilqr.py:839-905)
-        while True:
-            active = (it < cfg.max_al_iterations) & ~finished
-            if not bool(active.any()):
-                break
-            # lanes outside the loop enter the inner loop frozen: they cost
-            # no trips and keep their state
-            X2, W2, gn, used = ilqr(xinit, X, W, P, lam, mu, ~active, grad_norm)
-            # pinned stage-0 rows are offset out of both the multiplier
-            # update and the feasibility measure
-            C = stage_ineq(X2, W2, P) + C_OFF
-            viol2 = (
-                torch.amax(torch.clamp(-C, min=0.0), dim=(1, 2))
-                if n_con > 0
-                else torch.zeros((Bsz,), **fdev)
-            )
-            lam2 = torch.clamp(lam - mu[:, None, None] * C, min=0.0)
-            mu2 = torch.where(
-                viol2 > cfg.tol_constraint,
-                torch.clamp(mu * cfg.penalty_scale, max=cfg.penalty_max),
-                mu,
-            )
-            finished2 = (viol2 <= cfg.tol_constraint) & (gn <= cfg.tol_stationarity)
-            X = where(active, X2, X)
-            W = where(active, W2, W)
-            lam = where(active, lam2, lam)
-            mu = torch.where(active, mu2, mu)
-            grad_norm = torch.where(active, gn, grad_norm)
-            n_inner = n_inner + torch.where(active, used, 0)
-            viol = torch.where(active, viol2, viol)
-            finished = finished | (active & finished2)
-            it = it + active.to(torch.int32)
+        finished = torch.zeros((Bsz,), dtype=torch.bool, device=dev)
+        active = (it < cfg.max_al_iterations) & ~finished
+        return dict(
+            X=rollout(xinit, W), W=W, lam=c["lam0"],
+            mu=torch.full((Bsz,), cfg.penalty_initial, **fdev),
+            grad_norm=torch.full((Bsz,), float("inf"), **fdev),
+            n_inner=torch.zeros((Bsz,), dtype=torch.int32, device=dev),
+            viol=torch.full((Bsz,), float("inf"), **fdev),
+            finished=finished, it_al=it, active_al=active, any_al=active.any(),
+        )
 
+    def u_al_head(c):
+        """(a) Enter the inner iLQR (al_ilqr.py:662-683). Lanes outside the
+        AL loop enter it frozen: they cost no trips and keep ``grad_norm``
+        as their stationarity measure."""
+        Bsz = c["X"].shape[0]
+        done = ~c["active_al"]
+        it = torch.zeros((Bsz,), dtype=torch.int32, device=dev)
+        active = (it < cfg.max_ilqr_iterations) & ~done
+        return dict(
+            Xi=c["X"], Wi=c["W"],
+            cost_cur=al_stage_cost(c["X"], c["W"], c["P"], c["lam"], c["mu"]),
+            reg=torch.full((Bsz,), cfg.reg_initial, **fdev),
+            done=done, gn_in=c["grad_norm"],
+            n_used=torch.zeros((Bsz,), dtype=torch.int32, device=dev),
+            it_in=it, active_in=active, any_in=active.any(),
+        )
+
+    def u_head(c):
+        """(b) Gauss-Newton model, backward sweep, step norms and the line
+        search's start (al_ilqr.py:684-719)."""
+        X, W, P = c["Xi"], c["Wi"], c["P"]
+        lx, lw, lxx, lxw, lww = stage_expansion_blocks(X, W, P, c["lam"], c["mu"])
+        k_ff, K, failed = backward(X, W, lx, lw, lxx, lxw, lww, c["reg"])
+        gn_step = torch.amax(torch.abs(k_ff), dim=(1, 2))
+        # tiny Newton step: no search needed (the lane is declared done in
+        # the tail); near-stationary: probe only alpha = 1
+        tiny_step = gn_step < cfg.tol_gradient
+        near_stat = gn_step < cfg.tol_stationarity
+        max_ls = torch.where(near_stat, 1, cfg.line_search_steps)
+        # Backtracking line search with early exit (al_ilqr.py:720-755):
+        # largest alpha first, each lane stops at its first improvement.
+        # Lanes that are done, failed, tiny-stepped (or inactive here)
+        # start "accepted" and never search.
+        skip_ls = c["done"] | failed | tiny_step | ~c["active_in"]
+        ls_it = torch.zeros_like(c["it_in"])
+        searching = (ls_it < max_ls) & ~skip_ls
+        return dict(
+            k_ff=k_ff, K=K, failed=failed, gn_step=gn_step, tiny_step=tiny_step,
+            max_ls=max_ls, skip_ls=skip_ls, accepted=skip_ls, X_ls=X, W_ls=W,
+            cost_ls=c["cost_cur"], ls_it=ls_it, searching=searching, any_ls=searching.any(),
+        )
+
+    def u_probe(c):
+        """(c) One line-search probe: every searching lane tries its alpha
+        (al_ilqr.py:720-755)."""
+        searching, accepted, ls_it = c["searching"], c["accepted"], c["ls_it"]
+        alpha = torch.pow(cfg.line_search_decay, ls_it.to(torch.float32))
+        X_c, W_c, cost_c = forward(
+            c["xinit"], c["Xi"], c["Wi"], c["k_ff"], c["K"], c["P"], c["lam"], c["mu"], alpha
+        )
+        delta = torch.sum(cost_c - c["cost_cur"], -1)
+        better = searching & torch.isfinite(cost_c).all(-1) & (delta < -1e-9)
+        accepted = accepted | better
+        ls_it = ls_it + searching.to(torch.int32)
+        searching = (ls_it < c["max_ls"]) & ~accepted
+        return dict(
+            X_ls=where(better, X_c, c["X_ls"]), W_ls=where(better, W_c, c["W_ls"]),
+            cost_ls=where(better, cost_c, c["cost_ls"]), accepted=accepted, ls_it=ls_it,
+            searching=searching, any_ls=searching.any(),
+        )
+
+    def u_tail(c):
+        """(d) Accept, regularisation, done flags (al_ilqr.py:756-817)."""
+        X, W, cost_cur, reg = c["Xi"], c["Wi"], c["cost_cur"], c["reg"]
+        done, active, failed = c["done"], c["active_in"], c["failed"]
+        gn_step, tiny_step = c["gn_step"], c["tiny_step"]
+        improved = c["accepted"] & ~c["skip_ls"]
+        accept = improved & ~failed
+
+        take = accept & ~done
+        X_new = where(take, c["X_ls"], X)
+        W_new = where(take, c["W_ls"], W)
+        cost_new = where(take, c["cost_ls"], cost_cur)
+        # escalate reg only on a genuine failure (bad factorization or a
+        # searched-and-rejected step); a tiny step at HIGH reg decays reg
+        # toward reg_converged_max instead of livelocking
+        escalate = failed | (~improved & ~tiny_step)
+        decay_probe = tiny_step & ~failed & (reg > cfg.reg_converged_max)
+        reg_step = torch.where(
+            accept,
+            torch.clamp(reg * 0.5, min=cfg.reg_min),
+            torch.where(
+                escalate,
+                torch.clamp(reg * 10.0, max=cfg.reg_max),
+                torch.where(decay_probe, torch.clamp(reg * 0.1, min=cfg.reg_min), reg),
+            ),
+        )
+        reg_new = torch.where(done, reg, reg_step)
+        gn = torch.where(done, c["gn_in"], gn_step)
+        # two-tier stationarity exit (al_ilqr.py:791-813): (a) the Newton
+        # step is below tol_gradient; (b) no improvement was found and
+        # the step is below tol_stationarity (beneath the f32 merit
+        # noise floor). Guarded by an honest factorization and reg.
+        done_new = done | (
+            ~failed
+            & (reg <= cfg.reg_converged_max)
+            & ((gn_step < cfg.tol_gradient) | (~improved & (gn_step < cfg.tol_stationarity)))
+        )
+        n_used_new = c["n_used"] + (~done).to(torch.int32)
+
+        done = torch.where(active, done_new, done)
+        it = c["it_in"] + active.to(torch.int32)
+        active_next = (it < cfg.max_ilqr_iterations) & ~done
+        return dict(
+            Xi=where(active, X_new, X), Wi=where(active, W_new, W),
+            cost_cur=where(active, cost_new, cost_cur), reg=torch.where(active, reg_new, reg),
+            done=done, gn_in=torch.where(active, gn, c["gn_in"]),
+            n_used=torch.where(active, n_used_new, c["n_used"]), it_in=it,
+            active_in=active_next, any_in=active_next.any(),
+        )
+
+    def u_al_update(c):
+        """(e) Multiplier and penalty update, feasibility, early exit once
+        feasible + stationary (al_ilqr.py:856-905)."""
+        X2, W2, P, active = c["Xi"], c["Wi"], c["P"], c["active_al"]
+        lam, mu, gn = c["lam"], c["mu"], c["gn_in"]
+        Bsz = X2.shape[0]
+        # pinned stage-0 rows are offset out of both the multiplier update
+        # and the feasibility measure
+        C = stage_ineq(X2, W2, P) + C_OFF
+        viol2 = (
+            torch.amax(torch.clamp(-C, min=0.0), dim=(1, 2))
+            if n_con > 0
+            else torch.zeros((Bsz,), **fdev)
+        )
+        lam2 = torch.clamp(lam - mu[:, None, None] * C, min=0.0)
+        mu2 = torch.where(
+            viol2 > cfg.tol_constraint,
+            torch.clamp(mu * cfg.penalty_scale, max=cfg.penalty_max),
+            mu,
+        )
+        finished2 = (viol2 <= cfg.tol_constraint) & (gn <= cfg.tol_stationarity)
+        finished = c["finished"] | (active & finished2)
+        it = c["it_al"] + active.to(torch.int32)
+        active_next = (it < cfg.max_al_iterations) & ~finished
+        return dict(
+            X=where(active, X2, c["X"]), W=where(active, W2, c["W"]), lam=where(active, lam2, lam),
+            mu=torch.where(active, mu2, mu), grad_norm=torch.where(active, gn, c["grad_norm"]),
+            n_inner=c["n_inner"] + torch.where(active, c["n_used"], 0),
+            viol=torch.where(active, viol2, c["viol"]), finished=finished, it_al=it,
+            active_al=active_next, any_al=active_next.any(),
+        )
+
+    def u_epilogue(c):
+        """(f) True cost, exit flag and the raw stage-0 violation
+        (al_ilqr.py:909-935)."""
+        X, W, P, viol, grad_norm = c["X"], c["W"], c["P"], c["viol"], c["grad_norm"]
+        Bsz = X.shape[0]
         cost = torch.sum(true_cost(X, W, P), -1)
         z = torch.cat([X, W], -1)
         # raw (unmasked) stage-0 violation: pinned rows are excluded from the
         # solver's feasibility measure, but safety monitoring must still see
         # an in-collision start (mpcPlanner.py:263)
-        if n_con > 0 and bool(pinned.any()):
+        if n_con > 0 and bool(pinned.any()):  # numpy, decided at build time
             c0_raw = stage_ineq(X[:, :1], W[:, :1], P[:, :1])
             violation0_raw = torch.amax(torch.clamp(-c0_raw, min=0.0), dim=(1, 2))
         else:
@@ -617,18 +654,57 @@ def build_solver(
             & torch.isfinite(cost)
             & torch.isfinite(grad_norm)
         )
-        exitflag = torch.where(
-            finite & finished, 1, torch.where(finite, 0, -1)
-        ).to(torch.int32)
+        exitflag = torch.where(finite & c["finished"], 1, torch.where(finite, 0, -1)).to(torch.int32)
+        return dict(z=z, exitflag=exitflag, cost=cost, violation0_raw=violation0_raw)
+
+    units = {
+        "prologue": u_prologue, "al_head": u_al_head, "head": u_head, "probe": u_probe,
+        "tail": u_tail, "al_update": u_al_update, "epilogue": u_epilogue,
+    }
+    programs = {}
+
+    def program(xinit, P) -> UnitProgram:
+        """The units and carry of this solver at the inputs' batch shape."""
+        key = (tuple(xinit.shape), tuple(P.shape))
+        if key not in programs:
+            programs[key] = UnitProgram(units, dev)
+        return programs[key]
+
+    # ---------------- the loops (host side: trip counts only) ---------------
+
+    def solve(xinit, params, z0, lam0=None) -> SolveResult:
+        xinit = torch.as_tensor(xinit, **fdev)
+        P = torch.as_tensor(params, **fdev)
+        z0 = torch.as_tensor(z0, **fdev)
+        lam0 = (
+            torch.zeros((xinit.shape[0], N, n_con), **fdev)
+            if lam0 is None
+            else torch.as_tensor(lam0, **fdev)
+        )
+        prog = program(xinit, P)
+        prog.load(xinit=xinit, P=P, z0=z0, lam0=lam0)
+        c = prog.carry
+        # the host reads one flag the last unit left in the carry
+        prog.run("prologue")
+        while bool(c["any_al"]):  # outer AL loop (al_ilqr.py:890)
+            prog.run("al_head")
+            while bool(c["any_in"]):  # inner iLQR (al_ilqr.py:818)
+                prog.run("head")
+                while bool(c["any_ls"]):  # line search (al_ilqr.py:750)
+                    prog.run("probe")
+                prog.run("tail")
+            prog.run("al_update")
+        prog.run("epilogue")
+        # fresh tensors: the next solve at this shape overwrites the carry
         return SolveResult(
-            z=z,
-            exitflag=exitflag,
-            cost=cost,
-            violation=viol,
-            grad_norm=grad_norm,
-            lam=lam,
-            iterations=n_inner,
-            violation0_raw=violation0_raw,
+            z=c["z"].clone(),
+            exitflag=c["exitflag"].clone(),
+            cost=c["cost"].clone(),
+            violation=c["viol"].clone(),
+            grad_norm=c["grad_norm"].clone(),
+            lam=c["lam"].clone(),
+            iterations=c["n_inner"].clone(),
+            violation0_raw=c["violation0_raw"].clone(),
         )
 
     # the kernel library (csrc stem) the backward sweep launches on the card,
@@ -637,7 +713,9 @@ def build_solver(
         solve.riccati_kernel = "riccati_packed"
     else:
         solve.riccati_kernel = None if cfg.riccati_backend == "scan" else "riccati_batched"
-    # exposed for white-box tests, as the JAX package's ``_internals``
+    # exposed for white-box tests, as the JAX package's ``_internals``;
+    # ``program(xinit, params)`` gives the units and carry at a batch shape
+    solve._program = program
     solve._internals = {
         "all_dyn_jacobians": all_dyn_jacobians,
         "stage_expansion_blocks": stage_expansion_blocks,

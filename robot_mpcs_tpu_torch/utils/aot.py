@@ -34,15 +34,24 @@ returns None; the kernel is then built from the sources, as without an
 artifact (an error where there is no ``nvcc``), and never replaced by its
 plain version.
 
-What has no counterpart here:
+The fleet step (``export_fleet_step`` / ``load_fleet_step``, behind
+``FleetRunner.export_step`` and ``FleetRunner(..., artifact_dir=...)``):
+the JAX package serialises the whole jitted fleet step. The port's compiled
+part of a fleet step is the same kernel library: phase 1 and every rescue
+tier launch one kernel at one shape, the problem's (``kernel_shapes``).
+``export_fleet_step`` copies it into the artifact directory beside
+``fleet_meta.yaml``, which holds the library fingerprint above and
+``_fleet_fingerprint``'s fields of the JAX package: the batch size, the
+mesh width (``n_devices``), the tier schedule, ``stall_reset_after`` and
+the kick's three knobs. ``load_fleet_step`` checks it against the runner
+and registers the library without ``nvcc``; a mismatch or an unreadable
+file warns and is declined, as for the planner. The solver's CUDA graphs
+(``solver/units.py``), the port's counterpart of the jitted program, cannot
+be serialised: a process captures its own at its first step, as the JAX
+package's loaded export skips only the Python trace.
 
-* ``_register_serializations``: no serialized program returns NamedTuples;
-  a library's entry point takes raw pointers.
-* ``export_fleet_step`` / ``load_fleet_step``: a library is compiled for
-  one problem shape and takes any batch size, and a fleet step of a problem
-  launches the same kernel at the same shape as its planner's solve. A
-  fleet loads the planner's export: ``load_planner_solve(runner.problem,
-  path)`` before its first step.
+What has no counterpart here: ``_register_serializations``: no serialized
+program returns NamedTuples; a library's entry point takes raw pointers.
 """
 
 from __future__ import annotations
@@ -58,6 +67,7 @@ from robot_mpcs_tpu_torch.ops import _build
 from robot_mpcs_tpu_torch.utils.devices import resolve_device
 
 EXPORT_META = "export_meta.yaml"
+FLEET_META = "fleet_meta.yaml"
 
 
 def kernel_shapes(problem) -> List[Tuple[str, tuple]]:
@@ -97,50 +107,41 @@ def _fingerprint(problem, kernels: List[Tuple[str, tuple]], device: torch.device
     }
 
 
-def export_planner_solve(problem, path: str, device="cuda") -> str:
-    """Build the kernel libraries ``problem``'s solve launches, copy them
-    into the artifact directory ``path`` and write their fingerprint for
-    ``device`` (a CUDA device). Returns the fingerprint file's path. Raises
-    where a library cannot be built (no ``nvcc``)."""
-    dev = resolve_device(device)
+def _export(path: str, meta: dict, kernels, meta_file: str) -> str:
+    """Build ``kernels``, copy them into ``path`` and write ``meta`` as
+    ``meta_file`` beside them; returns the metadata file's path."""
     import yaml
 
-    kernels = kernel_shapes(problem)
     os.makedirs(path, exist_ok=True)
-    meta = _fingerprint(problem, kernels, dev)
     for stem, shape in kernels:
         lib, _ = _build.build_library(stem, shape)
         shutil.copyfile(lib, os.path.join(path, meta["kernels"][stem]["file"]))
-    out = os.path.join(path, EXPORT_META)
+    out = os.path.join(path, meta_file)
     with open(out, "w") as f:
         yaml.safe_dump(meta, f, default_flow_style=False)
     return out
 
 
-def load_planner_solve(problem, path: str, device="cuda") -> Optional[Dict[str, str]]:
-    """Register the kernel libraries exported in the artifact directory
-    ``path`` for this process, when their fingerprint matches ``problem``,
-    this process, ``device`` and the sources in the tree. Returns {stem:
-    absolute library path}, or None (with a warning) when the artifact holds
-    no export, does not match, or cannot be read."""
-    dev = resolve_device(device)
-    meta_path = os.path.join(path, EXPORT_META)
+def _load(path: str, fingerprint, meta_file: str) -> Optional[Dict[str, str]]:
+    """Register the libraries of ``path`` when its ``meta_file`` equals
+    ``fingerprint()``; else warn and return None."""
+    meta_path = os.path.join(path, meta_file)
     if not os.path.isfile(meta_path):
-        warnings.warn(f"{path} holds no exported kernels ({EXPORT_META}); "
-                      f"they are built from the sources", stacklevel=2)
+        warnings.warn(f"{path} holds no exported kernels ({meta_file}); "
+                      f"they are built from the sources", stacklevel=3)
         return None
     import yaml
 
     try:
         with open(meta_path) as f:
             meta = yaml.safe_load(f)
-        want = _fingerprint(problem, kernel_shapes(problem), dev)
+        want = fingerprint()
         if meta != want:
             keys = sorted(k for k in set(meta) | set(want) if meta.get(k) != want.get(k))
             warnings.warn(
                 f"declining the exported kernels in {path}: {keys} differ from this "
                 f"process and the sources; they are built from the sources",
-                stacklevel=2,
+                stacklevel=3,
             )
             return None
         libs = {}
@@ -150,5 +151,60 @@ def load_planner_solve(problem, path: str, device="cuda") -> Optional[Dict[str, 
         return libs
     except (OSError, AttributeError, KeyError, TypeError, yaml.YAMLError) as e:
         warnings.warn(f"ignoring unreadable kernel export at {path} ({e}); "
-                      f"the kernels are built from the sources", stacklevel=2)
+                      f"the kernels are built from the sources", stacklevel=3)
         return None
+
+
+def export_planner_solve(problem, path: str, device="cuda") -> str:
+    """Build the kernel libraries ``problem``'s solve launches, copy them
+    into the artifact directory ``path`` and write their fingerprint for
+    ``device`` (a CUDA device). Returns the fingerprint file's path. Raises
+    where a library cannot be built (no ``nvcc``)."""
+    dev = resolve_device(device)
+    kernels = kernel_shapes(problem)
+    return _export(path, _fingerprint(problem, kernels, dev), kernels, EXPORT_META)
+
+
+def load_planner_solve(problem, path: str, device="cuda") -> Optional[Dict[str, str]]:
+    """Register the kernel libraries exported in the artifact directory
+    ``path`` for this process, when their fingerprint matches ``problem``,
+    this process, ``device`` and the sources in the tree. Returns {stem:
+    absolute library path}, or None (with a warning) when the artifact holds
+    no export, does not match, or cannot be read."""
+    dev = resolve_device(device)
+    return _load(path, lambda: _fingerprint(problem, kernel_shapes(problem), dev), EXPORT_META)
+
+
+# ------------------------------------------------------------- fleet step
+
+
+def _fleet_fingerprint(runner) -> dict:
+    """The library fingerprint of the runner's problem on its device, and
+    the JAX package's fleet fields: batch, mesh width, tier schedule
+    ``(ratio, al, ilqr, line search)``, stall reset and kick knobs."""
+    return {
+        **_fingerprint(runner.problem, kernel_shapes(runner.problem), runner.device),
+        "batch": int(runner.batch),
+        "n_devices": int(runner.mesh.world),
+        "tiers": [list(t) for t in runner._tier_spec],
+        "stall_reset_after": int(runner._stall_reset_after),
+        "kick": [int(runner._kick_after), float(runner._kick_gdist), float(runner._kick_scale)],
+    }
+
+
+def export_fleet_step(runner, path: str) -> str:
+    """Export the compiled part of ``runner``'s fleet step into ``path``:
+    the kernel library its phase 1 and rescue tiers launch, beside
+    ``fleet_meta.yaml`` (``_fleet_fingerprint``). Returns the metadata
+    file's path. Raises where the library cannot be built (no ``nvcc``)."""
+    kernels = kernel_shapes(runner.problem)
+    return _export(path, _fleet_fingerprint(runner), kernels, FLEET_META)
+
+
+def load_fleet_step(runner, path: str) -> Optional[Dict[str, str]]:
+    """Register the kernel library of a fleet step exported in ``path``
+    when ``fleet_meta.yaml`` matches ``runner`` (batch, mesh width, tiers,
+    stall and kick knobs), this process and the sources; returns {stem:
+    absolute library path}, or None with a warning, and the kernel is then
+    built from the sources at the first step."""
+    return _load(path, lambda: _fleet_fingerprint(runner), FLEET_META)

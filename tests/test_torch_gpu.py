@@ -610,3 +610,65 @@ def test_bench_on_card(capsys, monkeypatch):
     assert extra["device"].startswith(torch.cuda.get_device_name(0))
     assert extra["riccati_launches"]["riccati_backward_packed"]["panda"] > 0
     assert extra["batch"] == 512 and extra["max_violation_converged"] <= 1e-4
+
+
+def _panda_cold(B):
+    from robot_mpcs_tpu_torch.config import Setup, panda_setup
+    from robot_mpcs_tpu_torch.models.problem import MpcProblem
+    from robot_mpcs_tpu_torch.parallel.fleet import random_fleet_scenario
+
+    problem = MpcProblem(Setup.from_dict(panda_setup()))
+    sc = random_fleet_scenario(problem, B, seed=0, **chip_smoke.sampler("panda"))
+    d = problem.dims
+    z0 = torch.zeros((B, d.N, d.nz))
+    z0[:, :, : d.nx] = sc.xinit[:, None, :]
+    return problem, [t.cuda() for t in (sc.xinit, sc.params, z0, torch.zeros((B, d.N, problem.n_con)))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 64])
+def test_graphed_solve_equals_eager_on_card(B):
+    """The solver's units replayed as CUDA graphs compute the eager loop's
+    solve bit for bit, with the same kernel launches by batch size, and a
+    replayed solve returns tensors a later solve does not overwrite."""
+    _need_card()
+    from robot_mpcs_tpu_torch.solver import units
+
+    problem, args = _panda_cold(B)
+    with units._eager(), chip_smoke.launches_by_batch(1) as eager_tally:
+        want = problem.build_solver(device="cuda")(*args)
+    solve = problem.build_solver(device="cuda")
+    first = solve(*args)  # warm-up and capture
+    replays = units.replays
+    with chip_smoke.launches_by_batch(1) as tally:
+        again = solve(*args)
+    assert units.replays > replays and tally == eager_tally
+    for name, a, b, c in zip(want._fields, want, first, again):
+        assert torch.equal(a, b) and torch.equal(a, c), name
+    other = [args[0] + 0.01] + args[1:]
+    solve(*other)
+    assert torch.equal(again.z, want.z)  # fresh tensors, not the carry
+
+
+@pytest.mark.gpu
+def test_unit_that_cannot_be_captured_raises_on_card():
+    """A unit whose callbacks read a value on the host cannot be captured:
+    the solve raises naming the unit, and never carries on eagerly."""
+    _need_card()
+    from robot_mpcs_tpu_torch.solver.al_ilqr import build_solver
+
+    problem, args = _panda_cold(8)
+    stage, w_lb, w_ub = problem.solver_callbacks()
+    values = stage.values
+
+    def reading(x, w, p):
+        out = values(x, w, p)
+        return out * float(out.abs().max() >= 0.0)  # a host read
+
+    d = problem.dims
+    solve = build_solver(stage._replace(values=reading), nx=d.nx, ns=d.ns, nu=d.nu, N=d.N,
+                         n_con=problem.n_con, n_res=problem.n_res, n_bar=problem.n_bar, w_lb=w_lb,
+                         w_ub=w_ub, cfg=problem.setup.solver,
+                         pinned_rows=problem.reference_constraint_rows()[1], device="cuda")
+    with pytest.raises(RuntimeError, match="solver unit 'al_head' could not be captured"):
+        solve(*args)
