@@ -49,10 +49,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the default rescue tier and kick. The structured kernel's launch count
    must grow, every metric must be finite and the last step's converged
    fraction must be >= 0.9 (a floor under the 0.956-0.971 the JAX package
-   reaches). Launches per step are printed by kernel and batch size. Two
-   more steps then split the step's wall time into phase-1 solve,
-   rescue-tier solve and the rest, and one step under ``torch.profiler``
-   gives the device's busy time, kernel count and idle share.
+   reaches). Launches per step are printed by kernel and batch size. Each
+   step is one CUDA graph replay (its loops WHILE nodes) after the first.
+   Two eager steps then split a step's wall time into phase-1 solve,
+   rescue-tier solve and the rest, and ``program_record`` gives the
+   device's busy time and kernel count (the same step profiled eagerly),
+   the graph's span on the device (CUDA events) and the idle share of the
+   graphed step without the profiler.
 5. group path: ``FleetGroup`` of pointRobot 1024, panda 2048 and boxer 1024
    lanes (``mixed_fleet_scenarios(seed=0)`` with bench.py's per-class
    samplers and weights) for 4 closed-loop steps (launches per step printed
@@ -60,9 +63,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    structured one from panda and pointRobot, the general one from boxer),
    every per-class metric must be finite and each class's last-step
    converged fraction >= 0.9. Prints each class's
-   synchronized wall time per step, one profiled group step, and one
-   profiled call of the solver's diff-drive Jacobians (forward-mode
-   autodiff, ``dynamics_jacobians``).
+   synchronized wall time per step and one profiled call of the solver's
+   diff-drive Jacobians (forward-mode autodiff, ``dynamics_jacobians``).
 5b. mobile panda path: the panda arm on a diff-drive base
    (``mobile_panda_setup``: nx = 22, nu = 9) as a fleet of 1024 lanes from
    seed 0 (``MOBILE_SAMPLER``, rescue tier at 1/8, no kick) for 6 steps,
@@ -70,16 +72,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and 128, every metric be finite, the last step's converged fraction >=
    0.9 and its converged lanes feasible to 1e-4. Prints each step's wall
    ms, converged fraction, goal distance and mean iterations, launches by
-   batch size, one profiled step, then 64 lanes of the last state solved on
-   the card and on the CPU at phase 9's bars.
+   batch size, its ``program_record``, then 64 lanes of the last state
+   solved on the card and on the CPU at phase 9's bars.
+5a. graph phase (``graph_phase``): each program captured whole as one CUDA
+   graph, its loops conditional WHILE nodes (``ops/graph_cond.py``), held
+   to the same units run eagerly (``units._eager``) from one state, bit for
+   bit (else within 1e-6, flags equal), launches by (kernel, B) equal, no
+   host read in a graphed call after the first, one replay a fleet step
+   (three a group step) or a solve: the panda fleet at B=4096 for 6 steps,
+   boxer, the mobile panda and the kick fleet (``kick_after`` = 2) at
+   B=1024, the mixed group, both planners for 20 solves; per program its
+   nodes, WHILE bodies, warm-up / capture / instantiate seconds, peak
+   memory, step ms and ``program_record``; then the panda runner's
+   ``export_step`` stepped by a child process without ``nvcc``.
 5c. kick path: the fleet's local-minimum kick noise (``utils/prng.py``,
    ``jax.random``'s threefry draw) on the card equals the CPU's bit for bit
    (key, bits, uniforms, normals) at (4096, 20, 7) for steps 0 and 25 and
    ranks 0 and 1; one draw's device events and call time are printed. Then
    the bench's panda scenario (the port's ``bench._scenario_for``) at
    B=1024 with the default rescue tier and ``kick_after=2`` for 4 steps,
-   read with its own launch counts: lanes are kicked, each kicked lane's
-   noise (its warm start less the unkicked shift) is the CPU's draw for the
+   eagerly (so that each step's unkicked shift can be read; phase 5a holds
+   the graphed kick fleet to the eager one), read with its own launch
+   counts: lanes are kicked, each kicked lane's noise (its warm start less
+   the unkicked shift) is the CPU's draw for the
    same key within 1e-5, every number is finite, the last step's converged
    fraction >= 0.9 with converged lanes feasible to 1e-4, and the
    structured kernel launched at B=1024 and 128.
@@ -92,7 +107,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the boxer example of phase 7 drives this path to its goal);
    every exit flag >= 0, every launch at B=1. Prints per-solve wall ms (p50 /
    p90 / max of solves 2..., the first apart), launches per solve
-   (``planner_launches``) and one profiled solve each. The first 10 solves
+   (``planner_launches``) and one solve each profiled eagerly. The first 10 solves
    of each run are repeated by a ``device="cpu"`` planner
    from the same observations, half-planes and warm starts: flags equal,
    actions within 1e-3 (2 x tol_stationarity where the two solves took a
@@ -445,11 +460,13 @@ def time_kernel_shapes(torch, rp, rb, plain=True):
 def kernel_pairs():
     """Every (stem, shape) the smoke launches: the main paths' shapes
     (``PACKED_SHAPES``, ``GENERAL_SHAPES``, which hold every robot's) and
-    the kernel phases' test dims."""
+    the kernel phases' test dims, and the library of the solver graphs'
+    WHILE nodes (``csrc/graph_cond.cu``, no shape)."""
     packed = {(2 * n, n + ns, ns) for n, ns in TEST_PACKED}
     packed |= {(2 * n, n + ns, ns) for _, _, n, ns in PACKED_SHAPES.values()}
     general = set(TEST_GENERAL) | {(nx, nw) for _, _, nx, nw, _ in GENERAL_SHAPES.values()}
-    return [("riccati_packed", s) for s in sorted(packed)] + [("riccati_batched", s) for s in sorted(general)]
+    return ([("riccati_packed", s) for s in sorted(packed)] + [("riccati_batched", s) for s in sorted(general)]
+            + [("graph_cond", ())])
 
 
 def build_phase():
@@ -584,41 +601,77 @@ def batched_kernel_phase(torch, rb, shapes):
 @contextlib.contextmanager
 def launches_by_batch(steps):
     """Tally the kernel wrappers' launches by kernel and batch size while the
-    block runs (a listener of ``_build.count_launch``, which sees eager
-    launches and the launches a CUDA graph replays alike), and print them per
-    step."""
+    block runs (``_build.launch_counts`` before and after it: eager launches
+    and those a CUDA graph's replays count on the device alike; reading them
+    synchronizes once, at the block's end), and print them per step. The
+    tally is filled when the block ends."""
     from robot_mpcs_tpu_torch.ops import _build
 
     tally = collections.Counter()
-
-    def listen(op, batch):
-        tally[(op.__name__, batch)] += 1
-
-    _build.launch_listeners.append(listen)
-    try:
-        yield tally
-    finally:
-        _build.launch_listeners.remove(listen)
+    before = _build.launch_counts()
+    yield tally
+    for key, n in _build.launch_counts().items():
+        if n != before.get(key, 0):
+            tally[key] = n - before.get(key, 0)
     per_step = collections.defaultdict(dict)
     for (name, B), count in sorted(tally.items()):
         per_step[name][str(B)] = count / steps
     print(json.dumps({"launches_per_step_by_batch": per_step}), flush=True)
 
 
+#: the ways a tensor's value reaches the host
+HOST_READS = ("__bool__", "item", "tolist", "__int__", "__float__", "__index__", "cpu", "numpy")
+
+
+@contextlib.contextmanager
+def host_reads():
+    """Count the reads of a CUDA tensor's value on the host while the block
+    runs (``Tensor.__bool__``, ``.item``, ``.tolist``, ``.cpu`` ...: a
+    loop's guard outside a graph reads its flag through ``__bool__``);
+    yields a one-entry list holding the count."""
+    import torch
+
+    count = [0]
+    originals = {name: getattr(torch.Tensor, name) for name in HOST_READS}
+
+    def counting(fn):
+        def read(self, *args, **kwargs):
+            if self.is_cuda:
+                count[0] += 1
+            return fn(self, *args, **kwargs)
+        return read
+
+    for name, fn in originals.items():
+        setattr(torch.Tensor, name, counting(fn))
+    try:
+        yield count
+    finally:
+        for name, fn in originals.items():
+            setattr(torch.Tensor, name, fn)
+
+
 def profile_windows(torch, fns, kernel_names):
-    """Run each of ``fns`` under its own ``torch.profiler`` window; returns
-    per-window and total (wall ms, device events, device busy ms, per-kernel
-    ms) and the idle share over all windows. The device events are read
-    from the profiler's raw (kineto) records: building its Python event
-    list (``prof.events()``) instead takes minutes for a fleet step of
+    """Run each of ``fns`` under its own ``torch.profiler`` window, with the
+    solver's programs run eagerly (``units._eager``: the same kernels as
+    their graphs, with the host's dispatch and loop-flag reads back in the
+    wall); returns per-window and total (wall ms, device events, device busy
+    ms, per-kernel ms) and the idle share over all windows, an eager one.
+    Eagerly, because CUPTI's tracing of a graph with conditional WHILE nodes
+    is not usable on the card: in a first profiler session it saw only the
+    top-level nodes, and a later session's traced replay faulted (an illegal
+    address) where the same replay untraced did not. The device events are
+    read from the profiler's raw (kineto) records: building its Python
+    event list (``prof.events()``) instead takes minutes for a fleet step of
     300k device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from robot_mpcs_tpu_torch.solver import units
+
     out, total = {}, {"wall_ms": 0.0, "device_events": 0, "device_busy_ms": 0.0}
     total.update({f"{k}_ms": 0.0 for k in kernel_names})
     for name, fn in fns.items():
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with units._eager(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
             fn()
             torch.cuda.synchronize()
@@ -684,17 +737,21 @@ def path_phase(torch, rp):
         "step_ms": [s * 1e3 for s in step_s], "steady_step_ms": steady * 1e3,
         "solves_per_s": BATCH / steady, **m,
     }), flush=True)
-    step_breakdown(torch, runner, state, scen)
+    step_breakdown(torch, runner, state, scen, steady * 1e3)
     return problem, scenario, launches, state, scen
 
 
-def step_breakdown(torch, runner, state, scen, steps=2):
+def step_breakdown(torch, runner, state, scen, steady_ms, steps=2):
     """Where a fleet step's time goes, from further steps after the counted
-    run: the host wall time of the phase-1 solve and of the rescue tier's
-    solve (synchronized around each), the rest of the step (gather/merge of
-    stragglers, post-step, kick, metrics), then one step under
-    ``torch.profiler`` for the device's busy time and kernel count, with the
-    idle share taken within that same profiled step."""
+    run. The graphed step is one replay and cannot be split on the host, so
+    the split into the phase-1 solve, the rescue tier's solve and the rest
+    (gather/merge of stragglers, post-step, kick, metrics), each
+    synchronized, is taken from ``steps`` eager steps (``units._eager``, the
+    plain version: host reads and launch gaps included). Then one graphed
+    step's ``program_record`` gives the device's busy time and kernel
+    count, the graph's span and the idle share without the profiler against
+    ``steady_ms``, the counted run's median graphed step."""
+    from robot_mpcs_tpu_torch.solver import units
 
     def timed(fn, key, acc):
         def wrapped(*args):
@@ -707,30 +764,23 @@ def step_breakdown(torch, runner, state, scen, steps=2):
         return wrapped
 
     solve, tiers = runner._solve, runner._tiers
-    for i in range(steps):
-        acc = {"phase1": 0.0, "rescue": 0.0}
-        runner._solve = timed(solve, "phase1", acc)
-        runner._tiers = [(k, timed(fn, "rescue", acc)) for k, fn in tiers]
-        t = time.perf_counter()
-        state, _ = runner.step(state, scen)
-        torch.cuda.synchronize()
-        total = time.perf_counter() - t
-        print(json.dumps({
-            "breakdown_step": i, "step_ms": total * 1e3, "phase1_solve_ms": acc["phase1"] * 1e3,
-            "rescue_solve_ms": acc["rescue"] * 1e3,
-            "rest_ms": (total - acc["phase1"] - acc["rescue"]) * 1e3,
-        }), flush=True)
+    with units._eager():
+        for i in range(steps):
+            acc = {"phase1": 0.0, "rescue": 0.0}
+            runner._solve = timed(solve, "phase1", acc)
+            runner._tiers = [(k, timed(fn, "rescue", acc)) for k, fn in tiers]
+            t = time.perf_counter()
+            runner.step(state, scen)
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t
+            print(json.dumps({
+                "eager_breakdown_step": i, "step_ms": total * 1e3, "phase1_solve_ms": acc["phase1"] * 1e3,
+                "rescue_solve_ms": acc["rescue"] * 1e3,
+                "rest_ms": (total - acc["phase1"] - acc["rescue"]) * 1e3,
+            }), flush=True)
     runner._solve, runner._tiers = solve, tiers
-
-    _, total = profile_windows(
-        torch, {"panda": lambda: runner.step(state, scen)}, ["riccati_packed_kernel"]
-    )
-    print(json.dumps({
-        "profiled_step_ms": total["wall_ms"], "device_events": total["device_events"],
-        "device_busy_ms": total["device_busy_ms"],
-        "riccati_kernel_ms": total["riccati_packed_kernel_ms"],
-        "idle_share_in_profiled_step": total["idle_share"],
-    }), flush=True)
+    program_record(torch, "panda fleet step B=4096 (path)", lambda: runner.step(state, scen), steady_ms,
+                   ["riccati_packed_kernel"])
 
 
 def group_phase(torch, rp, rb):
@@ -804,13 +854,6 @@ def group_phase(torch, rp, rb):
         "last_step": last,
     }), flush=True)
 
-    # one profiled group step, one window per class
-    per_win, total = profile_windows(
-        torch,
-        {k: (lambda k=k: group.runners[k].step(states[k], scen[k])) for k in group.runners},
-        ["riccati_packed_kernel", "riccati_batched_kernel"],
-    )
-    print(json.dumps({"profiled_group_step": total, "per_class": per_win}), flush=True)
     # one profiled call of the solver's diff-drive Jacobians at the group
     # shape (forward-mode autodiff of the dynamics, models.dynamics_jacobians)
     nx = group.runners["boxer"].dims.nx
@@ -865,15 +908,13 @@ def mobile_phase(torch, rb):
     check(m["converged_fraction"] >= 0.9, f"mobile panda converged_fraction {m['converged_fraction']} < 0.9")
     check(m["max_violation_converged"] <= 1e-4, "mobile panda: converged lanes violate constraints")
     t1 = time.perf_counter()
-    _, total = profile_windows(torch, {"mobile": lambda: runner.step(state, scen)}, ["riccati_batched_kernel"])
-    t2 = time.perf_counter()
     print(json.dumps({
         "fleet": "mobile panda", "batch": MOBILE_BATCH, "steps": MOBILE_STEPS, "kernel_launches": launches,
         "step_ms": step_ms, "steady_step_ms": float(np.median(step_ms[1:])),
-        "profiled_step_ms": total["wall_ms"], "device_events": total["device_events"],
-        "device_busy_ms": total["device_busy_ms"], "riccati_kernel_ms": total["riccati_batched_kernel_ms"],
-        "idle_share_in_profiled_step": total["idle_share"],
     }), flush=True)
+    program_record(torch, "mobile panda fleet step B=1024 (mobile phase)", lambda: runner.step(state, scen),
+                   float(np.median(step_ms[1:])), ["riccati_batched_kernel"])
+    t2 = time.perf_counter()
     reference_phase(torch, "mobile panda (warm, after the fleet's steps)", problem, scenario,
                     warm=(state.x, state.z_warm, state.lam))
     print(json.dumps({"mobile_phase_s": {"steps": t1 - t0, "profiled_step": t2 - t1,
@@ -902,42 +943,47 @@ def kick_fleet_run(torch, device, batch=KICK_BATCH, steps=KICK_STEPS):
     the CPU's draw for the same key."""
     from robot_mpcs_tpu_torch import bench as tbench
     from robot_mpcs_tpu_torch.parallel.fleet import KICK_SEED, FleetRunner
+    from robot_mpcs_tpu_torch.solver import units
     from robot_mpcs_tpu_torch.utils import prng
 
     problem, _ = tbench._load_problem("panda")
     runner = FleetRunner(problem, batch, device=device, kick_after=KICK_AFTER)
     scen = runner.to_device(tbench._scenario_for(problem, batch, "panda"))
     state = runner.init_state(scen)
-    post_step, shifts = runner._post_step, []
+    # eager (units._eager) so that each step's unkicked shift can be read
+    # from its post-step; graph_phase holds the graphed kick fleet to this
+    # eager run bit for bit
+    with units._eager():
+        post_step, shifts = runner._post_step, []
 
-    def recording_post_step(*args):
-        out = post_step(*args)
-        shifts.append((out[1].clone(), out[-1].clone()))  # (z_shift, kick) before the noise
-        return out
+        def recording_post_step(*args):
+            out = post_step(*args)
+            shifts.append((out[1].clone(), out[-1].clone()))  # (z_shift, kick) before the noise
+            return out
 
-    runner._post_step = recording_post_step
-    nx, records = problem.dims.nx, []
-    for i in range(steps):
-        t = time.perf_counter()
-        state, metrics = runner.step(state, scen)
-        m = {k: float(v) for k, v in metrics._asdict().items()}  # synchronizes
-        step_ms = (time.perf_counter() - t) * 1e3
-        z_shift, kick = shifts[-1]
-        kicked = int(kick.sum())
-        noise_err = None
-        if kicked:
-            want = prng.normal(prng.fold_in(prng.fold_in(prng.prng_key(KICK_SEED), i), 0),
-                               tuple(z_shift[..., nx:].shape))
-            got = (state.z_warm[..., nx:] - z_shift[..., nx:]).cpu()
-            k = kick.cpu()
-            noise_err = float((got[k] - want[k]).abs().max())
-            check(bool((got[~k] == 0).all()), f"kick fleet step {i}: noise on lanes not kicked")
-        records.append({"kick_step": i, "step_ms": step_ms, "kicked": kicked,
-                        "noise_vs_cpu_draw": noise_err, **{k: m[k] for k in (
-                            "converged_fraction", "mean_goal_distance", "mean_iterations",
-                            "max_violation_converged", "rescue_overflow_fraction")}})
-        print(json.dumps(records[-1]), flush=True)
-        check(all(np.isfinite(v) for v in m.values()), f"non-finite kick fleet metrics at step {i}: {m}")
+        runner._post_step = recording_post_step
+        nx, records = problem.dims.nx, []
+        for i in range(steps):
+            t = time.perf_counter()
+            state, metrics = runner.step(state, scen)
+            m = {k: float(v) for k, v in metrics._asdict().items()}  # synchronizes
+            step_ms = (time.perf_counter() - t) * 1e3
+            z_shift, kick = shifts[-1]
+            kicked = int(kick.sum())
+            noise_err = None
+            if kicked:
+                want = prng.normal(prng.fold_in(prng.fold_in(prng.prng_key(KICK_SEED), i), 0),
+                                   tuple(z_shift[..., nx:].shape))
+                got = (state.z_warm[..., nx:] - z_shift[..., nx:]).cpu()
+                k = kick.cpu()
+                noise_err = float((got[k] - want[k]).abs().max())
+                check(bool((got[~k] == 0).all()), f"kick fleet step {i}: noise on lanes not kicked")
+            records.append({"kick_step": i, "step_ms": step_ms, "kicked": kicked,
+                            "noise_vs_cpu_draw": noise_err, **{k: m[k] for k in (
+                                "converged_fraction", "mean_goal_distance", "mean_iterations",
+                                "max_violation_converged", "rescue_overflow_fraction")}})
+            print(json.dumps(records[-1]), flush=True)
+            check(all(np.isfinite(v) for v in m.values()), f"non-finite kick fleet metrics at step {i}: {m}")
     check(bool(torch.isfinite(state.x).all() and torch.isfinite(state.z_warm).all()),
           "non-finite kick fleet state")
     return records
@@ -1251,7 +1297,7 @@ def planner_phase(torch, rp, rb):
         # one profiled solve from the final state
         planner = sc["planner"]
         obs = np.concatenate([np.asarray(o) for o in sc["sim"].observation()])
-        _, prof = profile_windows(torch, {"solve": lambda: planner.solve(obs)},
+        _, prof = profile_windows(torch, {"solve": lambda: planner.solve(obs)},  # eagerly
                                   ["riccati_packed_kernel", "riccati_batched_kernel"])
         runs[kind] = (sc, rec)
         print(json.dumps({
@@ -1260,7 +1306,7 @@ def planner_phase(torch, rp, rb):
             **percentiles(rec["solve_ms"]),
             "fsd_ms_per_step": float(np.median(rec["fsd_ms"])) if rec["fsd_ms"] else None,
             "launches_per_solve": per_solve[kind], "flags": collections.Counter(rec["flags"]),
-            "profiled_solve": prof,
+            "eager_profiled_solve": prof,
         }), flush=True)
     print(json.dumps({"planner_launches": per_solve}), flush=True)
 
@@ -1416,13 +1462,6 @@ def run_steps(torch, runner, scen, steps):
     """``steps`` synchronized fleet steps from a cold start; returns (state,
     per-step metrics, per-step ms, per-step exit flags (steps, B))."""
     flags = []
-    post = runner._post_step
-
-    def recorded(state, scenario, res):
-        flags.append(res.exitflag.clone())
-        return post(state, scenario, res)
-
-    runner._post_step = recorded
     state = runner.init_state(scen)
     metrics, ms = [], []
     for _ in range(steps):
@@ -1431,8 +1470,8 @@ def run_steps(torch, runner, scen, steps):
         state, m = runner.step(state, scen)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t) * 1e3)
+        flags.append(runner._last_program.carry["exitflag"].clone())  # the merged result's
         metrics.append({k: float(v) for k, v in m._asdict().items()})
-    runner._post_step = post
     return state, metrics, ms, torch.stack(flags)
 
 
@@ -1879,6 +1918,12 @@ def run_deploy_child(solver_dir, kind, tmp, label, nvcc):
         return json.load(f), cache
 
 
+def artifact_libraries(path, stem):
+    """What a process loads from an artifact at ``path``: its kernel and the
+    WHILE-node library, {stem: absolute path}."""
+    return {name: os.path.abspath(os.path.join(path, f"lib{name}.so")) for name in (stem, "graph_cond")}
+
+
 def deploy_check(kind, tmp, altered=True):
     """Steps 1-3 of ``deploy_phase`` for the ``kind`` artifact, in ``tmp``
     (step 3 with ``altered``); returns its record."""
@@ -1902,8 +1947,8 @@ def deploy_check(kind, tmp, altered=True):
     problem = MpcProblem.from_solver_dir(path)
     parent = deploy_scene(kind, MPCPlanner(problem, device="cuda"))
     loaded, cache = run_deploy_child(path, kind, tmp, f"{kind}_export", nvcc=False)
-    check(loaded["libraries"] == {stem: os.path.abspath(os.path.join(path, f"lib{stem}.so"))},
-          f"{kind}: the child loaded {loaded['libraries']}, not the artifact's library")
+    check(loaded["libraries"] == artifact_libraries(path, stem),
+          f"{kind}: the child loaded {loaded['libraries']}, not the artifact's libraries")
     check(not os.path.exists(cache) or not os.listdir(cache), f"{kind}: the child built a kernel")
     rec = {"deploy": kind, "make_solver_s": make_s, "make_solver_first_solve_s": first_s}
     children = [("export", loaded)]
@@ -2009,57 +2054,89 @@ def deploy_phase(torch, rp, rb):
     return {k: {"ros node": n} for k, n in launches.items() if n}
 
 
-#: the graph phase: the panda fleet's steps graphed and eager from one
-#: state, boxer's and the mobile panda's, the planners' B=1 solves, and the
-#: fleet artifact's child (``--fleet-child``)
+#: the graph phase: each program (a fleet step, a planner solve) captured
+#: whole, held to its eager run from one state: the panda fleet, boxer's and
+#: the mobile panda's, the kick fleet, a mixed group, the planners' B=1
+#: solves, and the fleet artifact's child (``--fleet-child``)
 GRAPH_STEPS = 6
 GRAPH_SIDE_STEPS = 2
 GRAPH_SIDE_BATCH = 1024
+GRAPH_KICK_STEPS = 4
+GRAPH_GROUP_STEPS = 2
 GRAPH_PLANNER_SOLVES = 20
 FLEET_CHILD_TIMEOUT_S = 300
 
 
-def fleet_trace(torch, runner, scen, steps, eager):
-    """``steps`` synchronized steps of ``runner`` from the scenario's initial
-    state, with the solver's units replayed as CUDA graphs or, with
-    ``eager``, run eagerly (the solver's private switch). Returns per step
-    the state (on the CPU), the exit flags and the metrics, the wall ms, the
-    launches by (kernel, B), the peak memory allocated and the growth of the
-    memory reserved."""
+@contextlib.contextmanager
+def program_calls():
+    """Record each top-level program call (``UnitProgram.call``, a fleet step
+    or a solve) made in the block: (program, host reads inside the call,
+    graph replays it made, its driver). Yields the list it fills."""
     from robot_mpcs_tpu_torch.solver import units
 
-    flags, post = [], runner._post_step
+    calls, call = [], units.UnitProgram.call
 
-    def recorded(state, scenario, res):
-        flags.append(res.exitflag.clone())
-        return post(state, scenario, res)
+    def recorded(self, driver):
+        if units._mode is not None:  # nested: part of the enclosing call
+            return call(self, driver)
+        replays = units.replays
+        with host_reads() as reads:
+            call(self, driver)
+        calls.append((self, reads[0], units.replays - replays, driver))
 
-    runner._post_step = recorded
-    state = runner.init_state(scen)
+    units.UnitProgram.call = recorded
+    try:
+        yield calls
+    finally:
+        units.UnitProgram.call = call
+
+
+def fleet_trace(torch, runner, scen, steps, eager):
+    """``steps`` synchronized steps of ``runner`` (a ``FleetRunner`` or a
+    ``FleetGroup``) from the scenario's initial state, each step one CUDA
+    graph replay after the first or, with ``eager``, its units run eagerly
+    (the solver's private switch). Returns per step the state and the merged
+    exit flags of every class (on the CPU), the metrics, the wall ms, the
+    host reads in the step and the replays; the
+    launches by (kernel, B), the peak memory allocated and reserved, and the
+    programs' capture stats."""
+    from robot_mpcs_tpu_torch.parallel import FleetGroup
+    from robot_mpcs_tpu_torch.solver import units
+
+    group = isinstance(runner, FleetGroup)
+    runners = runner.runners if group else {"": runner}
+    state = runner.init_states(scen) if group else runner.init_state(scen)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reserved = torch.cuda.memory_reserved()
-    out = {"states": [], "metrics": [], "ms": []}
+    out = {k: [] for k in ("states", "flags", "metrics", "ms", "host_reads", "replays")}
     with (units._eager() if eager else contextlib.nullcontext()), launches_by_batch(steps) as tally:
         for _ in range(steps):
             torch.cuda.synchronize()
-            t = time.perf_counter()
-            state, m = runner.step(state, scen)
-            torch.cuda.synchronize()
-            out["ms"].append((time.perf_counter() - t) * 1e3)
-            out["states"].append({k: v.cpu() for k, v in state._asdict().items()})
-            out["metrics"].append({k: float(v) for k, v in m._asdict().items()})
-    del runner._post_step  # the class's method again, no reference cycle
-    out.update(flags=[f.cpu() for f in flags], launches=dict(tally),
-               peak_allocated_mb=torch.cuda.max_memory_allocated() / 2**20,
-               reserved_growth_mb=(torch.cuda.memory_reserved() - reserved) / 2**20, state=state)
+            with program_calls() as calls, host_reads() as reads:
+                t = time.perf_counter()
+                state, m = runner.step(state, scen)
+                torch.cuda.synchronize()
+                out["ms"].append((time.perf_counter() - t) * 1e3)
+            out["host_reads"].append(reads[0])
+            out["replays"].append(sum(c[2] for c in calls))
+            states = state if group else {"": state}
+            out["states"].append({f"{c}{k}": v.cpu() for c, st in states.items() for k, v in st._asdict().items()})
+            out["flags"].append(torch.cat([r._last_program.carry["exitflag"].cpu() for r in runners.values()]))
+            metrics = m.per_class if group else {"": m}
+            out["metrics"].append({f"{c}{k}": float(v) for c, mc in metrics.items() for k, v in mc._asdict().items()})
+    out.update(launches=dict(tally), peak_allocated_mb=torch.cuda.max_memory_allocated() / 2**20,
+               peak_reserved_mb=torch.cuda.max_memory_reserved() / 2**20,
+               reserved_growth_mb=(torch.cuda.memory_reserved() - reserved) / 2**20, state=state,
+               stats={c: r._last_program.stats for c, r in runners.items()})
     return out
 
 
 def hold_traces(torch, label, eager, graphed):
     """The graphed run against the eager one, step by step: states, exit
     flags and metrics bit for bit, else within 1e-6 with every flag equal;
-    launches by (kernel, B) equal. Returns the largest state difference."""
+    launches by (kernel, B) equal; no host read inside a graphed step after
+    the first (its warm-up and capture). Returns the largest state difference."""
     worst, bitwise = 0.0, True
     for i, (se, sg) in enumerate(zip(eager["states"], graphed["states"])):
         check(torch.equal(eager["flags"][i], graphed["flags"][i]), f"{label}: exit flags differ at step {i}")
@@ -2075,28 +2152,31 @@ def hold_traces(torch, label, eager, graphed):
     check(worst <= 1e-6, f"{label}: graphed and eager runs differ by {worst:.3e}")
     check(eager["launches"] == graphed["launches"],
           f"{label}: launches {graphed['launches']} graphed, {eager['launches']} eager")
+    check(not any(graphed["host_reads"][1:]), f"{label}: host reads in graphed steps {graphed['host_reads']}")
     print(json.dumps({"graphs_vs_eager": label, "bit_for_bit": bitwise, "max_abs_diff": worst,
                       "eager_step_ms": eager["ms"], "graphed_step_ms": graphed["ms"],
+                      "eager_host_reads": eager["host_reads"], "graphed_host_reads": graphed["host_reads"],
+                      "graphed_replays": graphed["replays"],
                       "eager_peak_allocated_mb": eager["peak_allocated_mb"],
                       "graphed_peak_allocated_mb": graphed["peak_allocated_mb"],
+                      "eager_peak_reserved_mb": eager["peak_reserved_mb"],
+                      "graphed_peak_reserved_mb": graphed["peak_reserved_mb"],
                       "eager_reserved_growth_mb": eager["reserved_growth_mb"],
                       "graphed_reserved_growth_mb": graphed["reserved_growth_mb"],
-                      "last_metrics": graphed["metrics"][-1]}), flush=True)
+                      "programs": graphed["stats"], "last_metrics": graphed["metrics"][-1]}), flush=True)
     return worst
 
 
-def graph_fleet(torch, label, problem, scenario, batch, steps, **runner_kw):
-    """One fleet, eager then graphed from the same scenario (each a runner of
-    its own, so the graphed one captures at its first step); held by
-    ``hold_traces``. Returns (graphed trace, graphed runner, scenario on the
-    card)."""
+def graph_fleet(torch, label, make, scenario, steps):
+    """One fleet (``make()``: a runner or a group), eager then graphed from
+    the same scenario (each its own, so the graphed one captures at its
+    first step); held by ``hold_traces``. Returns (graphed trace, graphed
+    runner, scenario on the card)."""
     import gc
-
-    from robot_mpcs_tpu_torch.parallel.fleet import FleetRunner
 
     traces = {}
     for mode in ("eager", "graphed"):
-        runner = FleetRunner(problem, batch, device="cuda", **runner_kw)
+        runner = make()
         scen = runner.to_device(scenario)
         traces[mode] = fleet_trace(torch, runner, scen, steps, eager=mode == "eager")
         if mode == "eager":
@@ -2105,6 +2185,39 @@ def graph_fleet(torch, label, problem, scenario, batch, steps, **runner_kw):
             torch.cuda.empty_cache()
     hold_traces(torch, label, traces["eager"], traces["graphed"])
     return traces["graphed"], runner, scen
+
+
+def program_record(torch, label, step, steady_ms, kernel_names=()):
+    """Where a graphed program's call (``step``: a fleet step or a solve,
+    one replay) spends its time, beside the card: the device's busy time and
+    events from one profiled call of the same work run eagerly (the same
+    kernels, ``profile_windows``); the graph's span on the device, CUDA
+    events around three graphed calls (median); and the idle share without
+    the profiler, 1 - busy / ``steady_ms`` (the median unprofiled wall of
+    the graphed call). Prints and returns the record."""
+    _, total = profile_windows(torch, {label: step}, list(kernel_names))
+    spans = []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        step()
+        end.record()
+        torch.cuda.synchronize()
+        spans.append(start.elapsed_time(end))
+    busy = total["device_busy_ms"]
+    rec = {"program": label, "steady_ms": steady_ms, "graph_span_ms": float(np.median(spans)),
+           "eager_profiled_ms": total["wall_ms"], "device_events": total["device_events"],
+           "device_busy_ms": busy, "idle_share_unprofiled": 1.0 - busy / steady_ms if total["device_events"] else None,
+           "card": card_label(), **{f"{k}_ms": total[f"{k}_ms"] for k in kernel_names}}
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def card_label():
+    """``name, power.limit`` of the card, as nvidia-smi prints them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip().splitlines()[0]
 
 
 def fleet_child(torch, artifact, out):
@@ -2172,8 +2285,8 @@ def fleet_artifact_check(torch, runner, first):
         rec = json.load(f)
     with np.load(out + ".npz") as data:
         got = {k: data[k] for k in data.files}
-    check(rec["libraries"] == {stem: os.path.abspath(os.path.join(artifact, f"lib{stem}.so"))},
-          f"the fleet child loaded {rec['libraries']}, not the artifact's library")
+    check(rec["libraries"] == artifact_libraries(artifact, stem),
+          f"the fleet child loaded {rec['libraries']}, not the artifact's libraries")
     check(not os.path.exists(cache) or not os.listdir(cache), "the fleet child built a kernel")
     check(not rec["warnings"] or not any("declining" in w for w in rec["warnings"]),
           f"the fleet child declined the export: {rec['warnings']}")
@@ -2187,76 +2300,115 @@ def fleet_artifact_check(torch, runner, first):
 
 
 def graph_phase(torch, rp, rb):
-    """The solver's units captured as CUDA graphs against the same units run
-    eagerly (``units._eager``), at the main paths' widths:
+    """Each program captured whole as one CUDA graph, its loops WHILE nodes,
+    against the same units run eagerly (``units._eager``), at the main
+    paths' widths:
 
     1. the bench's panda fleet (B=4096, default rescue tier and kick) for
        ``GRAPH_STEPS`` steps: states, exit flags and metrics bit for bit
        (else within 1e-6 with flags equal), launches by (kernel, B) equal and
        printed a step (16 at 4096 + 50 at 512 where every loop runs to its
-       budget); wall ms, peak memory of both, then one
-       profiled graphed step (device busy, idle share, graph replays);
+       budget), no host read in a graphed step after the first, one replay
+       a step; wall ms, peak memory, the graph's nodes and WHILE bodies,
+       warm-up, capture and instantiate seconds, then one profiled graphed
+       step (device busy, idle share without the profiler);
     2. the bench's boxer fleet and the mobile panda fleet at B=1024 for
        ``GRAPH_SIDE_STEPS`` steps each, the same checks (the general kernel);
-    3. the panda and boxer planners at B=1, ``GRAPH_PLANNER_SOLVES`` solves
-       of one closed loop each: actions and flags equal, p50 / p90 ms of both;
-    4. ``FleetRunner.export_step`` of the graphed panda runner, then a child
+    3. the kick fleet (the bench's panda scenario at B=1024, ``kick_after``
+       = 2) for ``GRAPH_KICK_STEPS`` steps, so that kicked lanes go through
+       the graph, and the mixed ``FleetGroup`` (``GROUP_SIZES``) for
+       ``GRAPH_GROUP_STEPS`` steps: three replays a group step;
+    4. the panda and boxer planners at B=1, ``GRAPH_PLANNER_SOLVES`` solves
+       of one closed loop each: actions and flags equal, one replay and no
+       host read inside each graphed solve after the first, p50 / p90 ms of
+       both, one profiled solve;
+    5. ``FleetRunner.export_step`` of the graphed panda runner, then a child
        process without ``nvcc`` that steps from ``artifact_dir``
        (``fleet_artifact_check``).
 
-    Returns the graphed panda fleet's launches by kernel."""
+    Returns each kernel's launches in the graphed panda fleet, the kick
+    fleet and the group."""
     from robot_mpcs_tpu_torch import bench as tbench
-    from robot_mpcs_tpu_torch.config import Setup
+    from robot_mpcs_tpu_torch.config import Setup, boxer_setup, panda_setup, point_robot_setup
     from robot_mpcs_tpu_torch.models.problem import MpcProblem
-    from robot_mpcs_tpu_torch.parallel.fleet import random_fleet_scenario
+    from robot_mpcs_tpu_torch.parallel import FleetGroup, mixed_fleet_scenarios
+    from robot_mpcs_tpu_torch.parallel.fleet import FleetRunner, random_fleet_scenario
     from robot_mpcs_tpu_torch.solver import units
+
+    def fleet(problem, batch, **kw):
+        return lambda: FleetRunner(problem, batch, device="cuda", **kw)
+
+    def steady(trace):
+        return float(np.median(trace["ms"][1:]))
 
     t0 = time.perf_counter()
     problem, _ = tbench._load_problem("panda")
     scenario = tbench._scenario_for(problem, BATCH, "panda")
-    trace, runner, scen = graph_fleet(torch, "panda fleet B=4096", problem, scenario, BATCH, GRAPH_STEPS)
+    trace, runner, scen = graph_fleet(torch, "panda fleet B=4096", fleet(problem, BATCH), scenario, GRAPH_STEPS)
     # equal to the eager run's (hold_traces); at scale every loop runs to its
     # budget: 16 launches a step at B=4096 (2 AL x 8 iLQR) and 50 at 512 (5 x 10)
     check(set(trace["launches"]) == {("riccati_backward_packed", BATCH), ("riccati_backward_packed", BATCH // 8)},
           f"graphed panda fleet launched at {sorted(trace['launches'])}")
     check(trace["metrics"][-1]["converged_fraction"] >= 0.9, "graphed panda fleet: converged < 0.9")
-    replays = units.replays
-    _, total = profile_windows(torch, {"graphed step": lambda: runner.step(trace["state"], scen)},
-                               ["riccati_packed_kernel"])
-    print(json.dumps({"graphed_profiled_step_ms": total["wall_ms"], "device_events": total["device_events"],
-                      "device_busy_ms": total["device_busy_ms"],
-                      "riccati_kernel_ms": total["riccati_packed_kernel_ms"],
-                      "idle_share_in_profiled_step": total["idle_share"],
-                      "graph_replays": units.replays - replays}), flush=True)
-    launches = {"riccati_backward_packed": sum(trace["launches"].values())}
+    check(trace["replays"][1:] == [1] * (GRAPH_STEPS - 1), f"panda fleet replays a step: {trace['replays']}")
+    launches = {"panda fleet (graph phase)": sum(trace["launches"].values())}
     fleet_artifact_check(torch, runner, trace["states"][0])
+    del runner
     t1 = time.perf_counter()
 
     boxer, _ = tbench._load_problem("boxer")
-    graph_fleet(torch, "boxer fleet B=1024", boxer, tbench._scenario_for(boxer, GRAPH_SIDE_BATCH, "boxer"),
-                GRAPH_SIDE_BATCH, GRAPH_SIDE_STEPS)
+    tr, r, sc = graph_fleet(torch, "boxer fleet B=1024", fleet(boxer, GRAPH_SIDE_BATCH),
+                            tbench._scenario_for(boxer, GRAPH_SIDE_BATCH, "boxer"), GRAPH_SIDE_STEPS)
+    program_record(torch, "boxer fleet step B=1024", lambda: r.step(tr["state"], sc), steady(tr))
     mobile = MpcProblem(Setup.from_dict(mobile_panda_setup()))
-    graph_fleet(torch, "mobile panda fleet B=1024", mobile,
-                random_fleet_scenario(mobile, GRAPH_SIDE_BATCH, seed=0, **MOBILE_SAMPLER),
-                GRAPH_SIDE_BATCH, GRAPH_SIDE_STEPS, kick_scale=0.0)
+    tr, r, sc = graph_fleet(torch, "mobile panda fleet B=1024", fleet(mobile, GRAPH_SIDE_BATCH, kick_scale=0.0),
+                            random_fleet_scenario(mobile, GRAPH_SIDE_BATCH, seed=0, **MOBILE_SAMPLER),
+                            GRAPH_SIDE_STEPS)
+    tr, r, sc = graph_fleet(torch, "kick fleet B=1024", fleet(problem, KICK_BATCH, kick_after=KICK_AFTER),
+                            tbench._scenario_for(problem, KICK_BATCH, "panda"), GRAPH_KICK_STEPS)
+    program_record(torch, "kick fleet step B=1024", lambda: r.step(tr["state"], sc), steady(tr))
+    launches["kick fleet (graph phase)"] = sum(tr["launches"].values())
+    setups = {"pointRobot": point_robot_setup, "panda": panda_setup, "boxer": boxer_setup}
+    problems = {k: (MpcProblem(Setup.from_dict(setups[k]())), b) for k, b in GROUP_SIZES.items()}
+    scenarios = mixed_fleet_scenarios(problems, seed=0, sampler_kwargs={k: sampler(k) for k in GROUP_SIZES})
+    tr, r, sc = graph_fleet(torch, "mixed group", lambda: FleetGroup(problems, device="cuda"), scenarios,
+                            GRAPH_GROUP_STEPS)
+    check(tr["replays"][1:] == [len(GROUP_SIZES)] * (GRAPH_GROUP_STEPS - 1),
+          f"group replays a step: {tr['replays']}")
+    program_record(torch, "mixed group step", lambda: r.step(tr["state"], sc), steady(tr),
+                   ["riccati_packed_kernel", "riccati_batched_kernel"])
+    group_launches = collections.Counter()
+    for (name, _), n in tr["launches"].items():
+        group_launches[name] += n
+    del r
     t2 = time.perf_counter()
 
     for kind in ("panda", "boxer"):
         runs = {}
         for mode in ("eager", "graphed"):
-            with units._eager() if mode == "eager" else contextlib.nullcontext():
+            with (units._eager() if mode == "eager" else contextlib.nullcontext()), program_calls() as calls:
                 runs[mode] = planner_run(kind, "cuda", GRAPH_PLANNER_SOLVES, replay=0)[1]
+            runs[mode]["calls"] = calls
         e, g = runs["eager"], runs["graphed"]
         same = len(e["actions"]) == len(g["actions"]) and all(
             np.array_equal(a, b) for a, b in zip(e["actions"], g["actions"]))
+        prog, driver = g["calls"][-1][0], g["calls"][-1][3]
+        reads = [c[1] for c in g["calls"]]
+        replays = [c[2] for c in g["calls"]]
         print(json.dumps({"planner_graphs_vs_eager": kind, "solves": len(g["actions"]),
                           "actions_equal": same, "flags_equal": e["flags"] == g["flags"],
-                          "eager_ms": percentiles(e["solve_ms"]), "graphed_ms": percentiles(g["solve_ms"])}),
-              flush=True)
+                          "eager_ms": percentiles(e["solve_ms"]), "graphed_ms": percentiles(g["solve_ms"]),
+                          "eager_host_reads_per_solve": [c[1] for c in e["calls"]][:3],
+                          "graphed_host_reads_per_solve": reads, "graphed_replays_per_solve": replays,
+                          "program": prog.stats}), flush=True)
         check(same and e["flags"] == g["flags"], f"{kind} planner: graphed and eager actions differ")
-    print(json.dumps({"graph_phase_s": {"panda": t1 - t0, "boxer_mobile": t2 - t1,
+        check(not any(reads[1:]) and replays[1:] == [1] * (len(replays) - 1),
+              f"{kind} planner: host reads {reads}, replays {replays} in graphed solves")
+        program_record(torch, f"{kind} planner solve B=1", lambda: prog.call(driver),
+                       float(np.percentile(g["solve_ms"][1:], 50)))
+    print(json.dumps({"graph_phase_s": {"panda": t1 - t0, "side_fleets_group": t2 - t1,
                                         "planners": time.perf_counter() - t2}}), flush=True)
-    return launches
+    return launches, group_launches
 
 
 #: the benchmark child's settings: panda at full width, few steps, both
@@ -2371,7 +2523,7 @@ def main() -> int:
     print(f"kernel phases done at {time.perf_counter() - t0:.1f} s", flush=True)
     panda, panda_scenario, packed["launches"], panda_state, panda_scen = path_phase(torch, rp)
     print(f"panda path done at {time.perf_counter() - t0:.1f} s", flush=True)
-    graphs = graph_phase(torch, rp, rb)
+    graphs, graph_group = graph_phase(torch, rp, rb)
     print(f"graph phase done at {time.perf_counter() - t0:.1f} s", flush=True)
     boxer, boxer_scenario, group_packed, group_batched = group_phase(torch, rp, rb)
     print(f"group path done at {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2398,12 +2550,14 @@ def main() -> int:
 
     # launches is the main path's count; each path's own beside it
     packed["launches_by_path"] = {"panda fleet": packed["launches"], "group": group_packed,
-                                  "graph phase, panda fleet (graphed)": graphs["riccati_backward_packed"],
-                                  "kick fleet (B=1024)": kick, "6-dof chain (B=64)": chain,
+                                  **graphs,
+                                  "graph phase, mixed group": graph_group["riccati_backward_packed"],
+                                  "kick fleet (B=1024, eager)": kick, "6-dof chain (B=64)": chain,
                                   **sharded, **reference_form, **examples["riccati_backward_packed"],
                                   **deploy.get("riccati_backward_packed", {}),
                                   **bench["riccati_backward_packed"]}
     batched["launches_by_path"] = {"mobile panda fleet": batched["launches"], "group": group_batched,
+                                   "graph phase, mixed group": graph_group["riccati_backward_batched"],
                                    **examples["riccati_backward_batched"],
                                    **deploy.get("riccati_backward_batched", {}),
                                    **bench["riccati_backward_batched"]}

@@ -171,7 +171,7 @@ def _build_kernels(problem, device) -> None:
     cache, the kernel libraries that the problem's solve launches on the
     card at its shape, so that no timed step calls nvcc."""
     if device.type == "cuda":
-        kernels = aot.kernel_shapes(problem)
+        kernels = aot.libraries(problem)
         _build.build_libraries(kernels)
         for stem, shape in kernels:
             _build.load_library(stem, shape)

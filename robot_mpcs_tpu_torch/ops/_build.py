@@ -13,11 +13,21 @@ with a solver artifact (``utils/aot.py``) is registered instead
 (``register_library``), and then no ``nvcc`` is needed. A missing ``nvcc``, a
 failed build, or a shape of which one lane's shared memory does not fit a
 block (``check_fits``) raises: no wrapper falls back to its plain version or
-to the scan for a CUDA tensor.
+to the scan for a CUDA tensor. ``csrc/graph_cond.cu`` (the solver's
+conditional WHILE nodes, ``ops/graph_cond.py``) is built the same way with no
+shape: ``load_library("graph_cond", ())``.
+
+Launch counts: each wrapper (``counted``) counts its launches by batch size.
+An eager launch counts on the host. A launch made while a CUDA graph is
+captured also captures a one-element increment of a counter on the device,
+one per (kernel, batch size), so that every replay counts the launches its
+loops really made, trip by trip. ``launch_counts()`` adds the two, at the
+cost of one synchronize when a graph has counted.
 """
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import contextlib
 import ctypes
@@ -29,7 +39,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -47,42 +57,121 @@ NO_INSTANTIATION = -1
 NO_ROOM = -2
 #: the shape fields each source is compiled for, in the order of its
 #: launcher's arguments (``-DRICCATI_<FIELD>``)
-SHAPE_FIELDS = {"riccati_packed": ("nx", "nw", "ns"), "riccati_batched": ("nx", "nw")}
+SHAPE_FIELDS = {"riccati_packed": ("nx", "nw", "ns"), "riccati_batched": ("nx", "nw"),
+                "graph_cond": ()}
+#: a symbol each source's library exports (``register_library`` checks it)
+ENTRY_POINTS = {"riccati_packed": "riccati_packed_launch",
+                "riccati_batched": "riccati_batched_launch",
+                "graph_cond": "graph_cond_while_begin"}
+#: counters on each device for the launches captured into CUDA graphs
+COUNTER_SLOTS = 256
 #: the shared memory a block may have on an sm_90 card (H100, H200), the
 #: opt-in maximum: the libraries are built for sm_90a only
 SM90_SHARED_OPTIN = 232448
 
 _libs: Dict[Tuple[str, tuple], ctypes.CDLL] = {}
-#: callables ``fn(op, batch)`` told of each launch a wrapper counts
-launch_listeners: List[Callable] = []
-#: the launches recorded while a CUDA graph is captured, else None
-_captured: Optional[list] = None
+#: launches counted on the host, {(kernel name, batch): n}
+_host_counts: collections.Counter = collections.Counter()
+#: per CUDA device, the captured launches' counters: (int64 tensor of
+#: COUNTER_SLOTS, {(kernel name, batch): slot})
+_device_counts: Dict[torch.device, Tuple[torch.Tensor, Dict[Tuple[str, int], int]]] = {}
+#: False while ``not_counted()`` is entered
+_counting = True
 
 
-def count_launch(op, batch: int) -> None:
-    """Count one launch of the kernel wrapper ``op`` at batch size
-    ``batch`` in ``op.launches`` and tell ``launch_listeners``. While a CUDA
-    graph is captured (``recording_launches``) the launch is only recorded:
-    nothing ran, and each replay of the graph counts it
-    (``solver/units.py``)."""
-    if _captured is not None:
-        _captured.append((op, int(batch)))
+def indexed(device: torch.device) -> torch.device:
+    """``device`` with its index (``cuda`` is the current CUDA device)."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def device_counters(device: torch.device):
+    """The counters of ``device``'s captured launches, allocated at first use.
+    A program calls this before it captures: a capture must not allocate
+    them (``solver/units.py``)."""
+    device = indexed(device)
+    if device not in _device_counts:
+        _device_counts[device] = (torch.zeros((COUNTER_SLOTS,), dtype=torch.int64, device=device), {})
+    return _device_counts[device]
+
+
+def count_launch(op, batch: int, device: torch.device) -> None:
+    """Count one launch of the kernel wrapper ``op`` at batch size ``batch``
+    on ``device``: on the host for an eager launch; inside a CUDA graph's
+    capture as an increment of the (kernel, batch) counter on the device,
+    captured beside the launch, so that each replay of the graph counts it
+    as often as it runs."""
+    if not _counting:
         return
-    op.launches += 1
-    for fn in launch_listeners:
-        fn(op, int(batch))
+    key = (op.__name__, int(batch))
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        device = indexed(device)
+        if device not in _device_counts:
+            raise RuntimeError(f"{op.__name__}: launched in a capture before device_counters({device})")
+        counts, slots = _device_counts[device]
+        if key not in slots:
+            if len(slots) == COUNTER_SLOTS:
+                raise RuntimeError(f"more than {COUNTER_SLOTS} (kernel, batch) launch counters")
+            slots[key] = len(slots)
+        counts[slots[key] : slots[key] + 1].add_(1)
+        return
+    _host_counts[key] += 1
+
+
+def launch_counts() -> Dict[Tuple[str, int], int]:
+    """Every wrapper's launches so far, ``{(kernel name, batch): n}``, eager
+    and replayed alike (reads the device counters: one synchronize)."""
+    counts = collections.Counter(_host_counts)
+    for buf, slots in _device_counts.values():
+        if slots:
+            values = buf.tolist()
+            for key, slot in slots.items():
+                counts[key] += values[slot]
+    return {k: n for k, n in counts.items() if n}
+
+
+def reset_launches(name: str) -> None:
+    """Set the launch counts of the kernel wrapper ``name`` to 0."""
+    for key in [k for k in _host_counts if k[0] == name]:
+        del _host_counts[key]
+    for buf, slots in _device_counts.values():
+        for key, slot in slots.items():
+            if key[0] == name:
+                buf[slot] = 0
 
 
 @contextlib.contextmanager
-def recording_launches():
-    """Record, instead of counting, the launches made in the block; yields
-    the list of ``(op, batch)`` it fills."""
-    global _captured
-    before, _captured = _captured, []
+def not_counted():
+    """Launches made in the block are not counted (the solver's scratch
+    runs before a capture, ``solver/units.py``)."""
+    global _counting
+    before, _counting = _counting, False
     try:
-        yield _captured
+        yield
     finally:
-        _captured = before
+        _counting = before
+
+
+class counted:
+    """A kernel wrapper with its count of launches: ``fn.launches`` reads
+    ``launch_counts()`` for this kernel, ``fn.launches = 0`` resets it."""
+
+    def __init__(self, fn):
+        functools.update_wrapper(self, fn)
+
+    def __call__(self, *args, **kwargs):
+        return self.__wrapped__(*args, **kwargs)
+
+    @property
+    def launches(self) -> int:
+        return sum(n for (name, _), n in launch_counts().items() if name == self.__name__)
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        if value != 0:
+            raise ValueError("a kernel's launch count can only be reset to 0")
+        reset_launches(self.__name__)
 
 
 def team_size(nx: int) -> int:
@@ -123,6 +212,8 @@ def check_shape(stem: str, shape) -> tuple:
     for one the kernel does not take."""
     shape = tuple(int(v) for v in shape)
     fields = SHAPE_FIELDS[stem]
+    if not fields and not shape:
+        return shape
     if len(shape) != len(fields) or min(shape[:2]) < 1:
         raise ValueError(f"{stem}: shape {fields} = {shape} is not a kernel shape")
     if stem == "riccati_packed":
@@ -138,6 +229,8 @@ def check_shape(stem: str, shape) -> tuple:
 def defines(stem: str, shape) -> List[str]:
     """The ``-D`` flags that compile ``csrc/<stem>.cu`` for ``shape``."""
     shape = check_shape(stem, shape)
+    if not shape:
+        return []
     values = dict(zip(SHAPE_FIELDS[stem], shape))
     values.update(t=team_size(shape[0]), depth=stage_depth(stem, shape))
     return [f"-DRICCATI_{k.upper()}={v}" for k, v in values.items()]
@@ -146,6 +239,8 @@ def defines(stem: str, shape) -> List[str]:
 def check_fits(stem: str, shape) -> None:
     """Raise unless one lane's shared memory at ``shape`` fits a block of an
     sm_90 card."""
+    if not SHAPE_FIELDS[stem]:
+        return
     need = 4 * lane_floats(stem, shape, stage_depth(stem, shape))
     limit = SM90_SHARED_OPTIN
     if need > limit:
@@ -274,7 +369,7 @@ def register_library(stem: str, shape, path: os.PathLike) -> ctypes.CDLL:
     key = (stem, check_shape(stem, shape))
     if key not in _libs:
         lib = ctypes.CDLL(str(Path(path).resolve()))
-        getattr(lib, f"{stem}_launch")  # AttributeError for another library
+        getattr(lib, ENTRY_POINTS[stem])  # AttributeError for another library
         _libs[key] = lib
     return _libs[key]
 

@@ -151,15 +151,17 @@ def build_kernel(nx: int, nw: int) -> ctypes.CDLL:
     return lib
 
 
+@_build.counted
 def riccati_backward_batched(lx, lw, lxx, lxw, lww, A, Bm, reg, *, N, nx, nw):
     """Batched general Riccati sweep. Inputs batch-first as in
     ``riccati_backward_batched_reference``; ``A``/``Bm`` per lane
     ``(B, N, ...)`` or shared by the batch ``(N, ...)``. Returns
     ``(k_ff (B, N, nw), K (B, N, nw, nx), failed (B,) bool)``.
 
-    A CUDA tensor launches the CUDA kernel (and counts the launch in
-    ``riccati_backward_batched.launches`` through ``_build.count_launch``); a CPU
-    tensor runs the plain version. Any other device raises.
+    A CUDA tensor launches the CUDA kernel and counts the launch in
+    ``riccati_backward_batched.launches`` (``_build.count_launch``: on the device
+    inside a CUDA graph's capture); a CPU tensor runs the plain version. Any
+    other device raises.
     """
     dev = lx.device
     if dev.type == "cpu":
@@ -199,9 +201,6 @@ def riccati_backward_batched(lx, lw, lxx, lxw, lww, A, Bm, reg, *, N, nx, nw):
             stream,
         )
     _build.raise_for_status("riccati_backward_batched", err, "riccati_batched", (nx, nw))
-    _build.count_launch(riccati_backward_batched, Bsz)
+    _build.count_launch(riccati_backward_batched, Bsz, dev)
     return k_ff, K, failed
 
-
-#: kernel launches made through the wrapper (CPU calls are not counted)
-riccati_backward_batched.launches = 0

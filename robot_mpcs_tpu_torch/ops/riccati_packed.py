@@ -167,14 +167,16 @@ def build_kernel(nx: int, nw: int, ns: int) -> ctypes.CDLL:
     return lib
 
 
+@_build.counted
 def riccati_backward_packed(lx, lw, lxx, lxw, lww, reg, *, N, nx, nw, ns, a, b1, b2):
     """Batched structured Riccati sweep. Inputs batch-first: lx (B, N, nx),
     lw (B, N, nw), lxx (B, N, nx, nx), lxw (B, N, nx, nw), lww (B, N, nw, nw),
     reg (B,). Returns ``(k_ff (B, N, nw), K (B, N, nw, nx), failed (B,) bool)``.
 
-    A CUDA tensor launches the CUDA kernel (and counts the launch in
-    ``riccati_backward_packed.launches`` through ``_build.count_launch``); a CPU
-    tensor runs the plain version. Any other device raises.
+    A CUDA tensor launches the CUDA kernel and counts the launch in
+    ``riccati_backward_packed.launches`` (``_build.count_launch``: on the device
+    inside a CUDA graph's capture); a CPU tensor runs the plain version. Any
+    other device raises.
     """
     dev = lx.device
     if dev.type == "cpu":
@@ -208,9 +210,6 @@ def riccati_backward_packed(lx, lw, lxx, lxw, lww, reg, *, N, nx, nw, ns, a, b1,
             float(a), float(b1), float(b2), stream,
         )
     _build.raise_for_status("riccati_backward_packed", err, "riccati_packed", (nx, nw, ns))
-    _build.count_launch(riccati_backward_packed, Bsz)
+    _build.count_launch(riccati_backward_packed, Bsz, dev)
     return k_ff, K, failed
 
-
-#: kernel launches made through the wrapper (CPU calls are not counted)
-riccati_backward_packed.launches = 0

@@ -3,12 +3,14 @@
 One ``FleetRunner.step`` advances every scenario by one control step:
 batched AL-iLQR solve, straggler rescue re-solve, action extraction, plant
 integration, shift-horizon warm start, metric reduction. All state lives on
-the runner's ``device``. The JAX package jits the whole step; here each
-solve (phase 1 and every rescue tier, each at its own batch size) runs as
-the solver's units captured as CUDA graphs at the first step
-(``solver/units.py``), and the host reads only one loop flag between two
-replays; the rest of the step is eager PyTorch with no host read. Whatever
-metrics the caller reads come back on top.
+the runner's ``device``. The JAX package jits the whole step
+(``jax.jit(sharded_step, donate_argnums=(0,))``); here the whole step,
+phase 1 and every rescue tier's solve (each at its own batch size) with
+their loops as conditional WHILE nodes, the gathers and merges, the
+post-step, the kick's draw and the metrics' reductions, is one program
+over a carry (``solver/units.py``), captured as one CUDA graph at the first
+step and replayed at every later one with no host read. Whatever metrics
+the caller reads come back on top.
 
 With a ``mesh`` (``parallel/mesh.py``: one process per card over
 ``torch.distributed``) each rank holds and steps the contiguous shard
@@ -16,7 +18,7 @@ With a ``mesh`` (``parallel/mesh.py``: one process per card over
 the solver's masked loops, the rescue gather and the post-step stay
 rank-local, and the only cross-rank traffic is one ``all_reduce(SUM)`` and
 one ``all_reduce(MAX)`` of the metrics' numerators, denominators and maxima,
-so every rank returns the same global ``FleetMetrics``. Without a mesh (or
+after the step's graph, so every rank returns the same global ``FleetMetrics``. Without a mesh (or
 with a mesh that has no process group) the step runs no collective.
 ``export_step(path)`` writes the step's compiled part, the kernel library,
 with its fingerprint (``utils/aot.py``); ``FleetRunner(...,
@@ -30,6 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
+import weakref
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -40,6 +43,7 @@ from robot_mpcs_tpu_torch.config import SolverConfiguration
 from robot_mpcs_tpu_torch.models.problem import MpcProblem
 from robot_mpcs_tpu_torch.parallel.mesh import Mesh, shard_batch
 from robot_mpcs_tpu_torch.solver.types import SolveResult
+from robot_mpcs_tpu_torch.solver.units import UnitProgram
 from robot_mpcs_tpu_torch.utils import prng
 from robot_mpcs_tpu_torch.utils.devices import resolve_device
 
@@ -198,6 +202,9 @@ class FleetRunner:
         pm = problem.param_map
         self._goal = pm.entries.get("goal")
         self._kick_key = prng.prng_key(KICK_SEED, device=self.device)
+        #: the step's programs, by input shapes (``_step_program``)
+        self._programs = {}
+        self._last_program: Optional[UnitProgram] = None
         if artifact_dir is not None:
             from robot_mpcs_tpu_torch.utils.aot import load_fleet_step
 
@@ -347,8 +354,42 @@ class FleetRunner:
         return self.to_device(shard_batch(self.mesh, scenario))
 
     def step(self, state: FleetState, scenario: FleetScenario):
-        """Advance every lane one control step; returns (new state, metrics)."""
+        """Advance every lane one control step; returns (new state, metrics).
+
+        The step is a program over a carry (``solver/units.py``): the state's
+        seven tensors and the scenario are copied into its static inputs, the
+        step runs, and the new state and the metrics' sums and maxima are
+        cloned out (the port's ``donate_argnums``: a later step overwrites
+        the carry, never what a caller holds). On the card the whole step,
+        its solves' loops included, is one CUDA graph replay with no host
+        read; with a process group the metrics' two all-reduces follow it."""
+        prog = self._step_program(state, scenario)
+        prog.load(**state._asdict(), xinit=scenario.xinit, params=scenario.params)
+        prog.call(lambda: prog.run("step"))
+        c = prog.carry
+        new_state = FleetState(**{k: c[f"next_{k}"].clone() for k in FleetState._fields})
+        return new_state, self._metrics(c["sums"].clone(), c["maxes"].clone(), state.x.shape[0])
+
+    def _step_program(self, state: FleetState, scenario: FleetScenario) -> UnitProgram:
+        """The step's program at these input shapes (one per runner in use)."""
+        key = tuple(tuple(t.shape) for t in (*state, scenario.xinit, scenario.params))
+        if key not in self._programs:
+            # a weak reference: the program (and its graph and pools) dies
+            # with the runner, not at a later garbage collection
+            step = weakref.WeakMethod(self._step_unit)
+            self._programs[key] = UnitProgram({"step": lambda c: step()(c)}, self.device)
+        self._last_program = self._programs[key]
+        return self._last_program
+
+    def _step_unit(self, c):
+        """One step on the carry's inputs: phase 1, each rescue tier's
+        gather, solve and merge, the post-step, the kick's draw and the
+        metrics' rank-local sums and maxima (fleet.py:405-502 of the JAX
+        package). Returns the new state (``next_*``), ``sums``, ``maxes`` and
+        the merged exit flags (``exitflag``)."""
         dims = self.dims
+        state = FleetState(**{k: c[k] for k in FleetState._fields})
+        scenario = FleetScenario(xinit=c["xinit"], params=c["params"])
         res = self._solve(state.x, scenario.params, state.z_warm, state.lam)
         # overflow is reported for the LAST tier: bad lanes the final
         # (widest-budget) pass had no slot for
@@ -365,23 +406,23 @@ class FleetRunner:
             # warm start's [s, u] entries — the slack entries too, exactly
             # as fleet.py:457 of the JAX package adds it. The noise is
             # jax.random's draw from the key folded on the step (a device
-            # tensor, no host read) and the rank (JAX's axis_index).
+            # tensor of the carry, no host read) and the rank (JAX's axis_index).
             key = prng.fold_in(prng.fold_in(self._kick_key, state.step), self.mesh.rank)
             noise = self._kick_scale * prng.normal(key, z_shift[..., dims.nx :].shape)
             z_shift = z_shift.clone()
             z_shift[..., dims.nx :] += torch.where(kick[:, None, None], noise, 0.0)
-        metrics = self._metrics(res, was_reset, gdist, overflow, bad_total)
+        sums, maxes = self._local_metrics(res, was_reset, gdist, overflow, bad_total)
         new_state = FleetState(
             x=x_next, z_warm=z_shift, lam=lam_shift, step=state.step + 1,
             stall=stall_next, best_gdist=best_gdist, no_improve=no_improve,
         )
-        return new_state, metrics
+        return {**{f"next_{k}": v for k, v in new_state._asdict().items()},
+                "sums": sums, "maxes": maxes, "exitflag": res.exitflag}
 
-    def _metrics(self, res: SolveResult, was_reset, gdist, overflow, bad_total) -> FleetMetrics:
-        """Batch reductions (fleet.py:460-502). Failed lanes are masked out
-        of the means so one NaN lane cannot poison the aggregates. The
-        rank-local sums and maxima travel in one vector each: with a process
-        group, one all_reduce(SUM) and one all_reduce(MAX) make them global."""
+    def _local_metrics(self, res: SolveResult, was_reset, gdist, overflow, bad_total):
+        """The rank-local sums and maxima of the batch reductions
+        (fleet.py:460-502), one vector each. Failed lanes are masked out of
+        the means so one NaN lane cannot poison the aggregates."""
         ok = ~was_reset
         conv = res.exitflag == 1
         f32 = lambda v: v.to(torch.float32)
@@ -407,10 +448,16 @@ class FleetRunner:
             f32(torch.amax(res.iterations)),
             torch.amax(torch.where(torch.isfinite(v0), v0, 0.0)),
         ])
+        return sums, maxes
+
+    def _metrics(self, sums, maxes, n_local: int) -> FleetMetrics:
+        """``FleetMetrics`` from the rank-local sums and maxima of
+        ``n_local`` lanes: with a process group, one all_reduce(SUM) and one
+        all_reduce(MAX) make them global (outside the step's graph)."""
         if self.mesh.group is not None:
             dist.all_reduce(sums, op=dist.ReduceOp.SUM, group=self.mesh.group)
             dist.all_reduce(maxes, op=dist.ReduceOp.MAX, group=self.mesh.group)
-        B = float(res.exitflag.shape[0] * self.mesh.world)
+        B = float(n_local * self.mesh.world)
         n_ok = torch.clamp(sums[0], min=1.0)
         return FleetMetrics(
             converged_fraction=sums[1] / B,

@@ -2,9 +2,10 @@
 
 Robot classes have different static shapes (nx, nu, N, constraint sets), so
 each class keeps its own homogeneous ``FleetRunner`` (grouped batching), and
-the group steps them back to back on the same device. The per-class steps
-are queued without a host synchronisation in between beyond the solver's
-own loop conditions. Metrics come back per class plus a batch-size-weighted
+the group steps them back to back on the same device. On the card each
+class's step is one CUDA graph replay (``FleetRunner.step``), so a group
+step is one replay per class, queued with no host read in between.
+Metrics come back per class plus a batch-size-weighted
 aggregate. With a ``mesh`` every class runner shards its batch over the same
 ranks (each class batch divides by the mesh size), and each class's metrics
 are already global when ``_aggregate`` weighs them.

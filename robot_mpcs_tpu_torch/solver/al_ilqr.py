@@ -30,13 +30,15 @@ drives (reference ``robotmpcs/models/mpcModel.py:74-129`` builds the problem,
   no lane is active or every lane hit its cap. A lane that is done is frozen
   with ``torch.where`` exactly as JAX's vmapped loop freezes it, so each
   lane's result does not depend on which other lanes share its batch.
-* **Compiled on the card** (the counterpart of ``jax.jit``): each loop
-  body is a unit over a carry preallocated per batch shape
-  (``solver/units.py``). On a CUDA device each unit is captured once as a
-  CUDA graph and replayed; the host only reads the loop flag a unit leaves
-  in the carry between replays, so every lane's iteration count, every
-  kernel launch and the device work are the eager loop's. On the CPU the
-  same units run eagerly.
+* **Compiled on the card** (the counterpart of ``jax.jit`` over
+  ``lax.while_loop``): each loop body is a unit over a carry preallocated
+  per batch shape (``solver/units.py``). On a CUDA device the whole solve
+  is captured once per batch shape as one CUDA graph whose three loops are
+  conditional WHILE nodes testing their flags on the device
+  (``ops/graph_cond.py``), and each later solve is one replay with no host
+  read: every lane's iteration count, every kernel launch and the device
+  work are the eager loop's. On the CPU the same units run eagerly and each
+  loop reads its flag on the host.
 """
 
 from __future__ import annotations
@@ -466,8 +468,8 @@ def build_solver(
     # ---------------- the loops as units over a carry -----------------------
     # Each JAX while_loop body is a unit of ``solver/units.py``: a function of
     # the carry ``c`` returning the entries it updates, with no host read.
-    # The host loop in ``solve`` reads the ``any_*`` flag a unit leaves
-    # behind, as the eager loop read ``active.any()``. Lanes outside a loop
+    # Each loop of ``drive`` tests the ``any_*`` flag a unit leaves behind,
+    # as the eager loop read ``active.any()``. Lanes outside a loop
     # are frozen with torch.where exactly as JAX's vmapped loop freezes them,
     # so each lane's result does not depend on the lanes sharing its batch.
 
@@ -670,7 +672,21 @@ def build_solver(
             programs[key] = UnitProgram(units, dev)
         return programs[key]
 
-    # ---------------- the loops (host side: trip counts only) ---------------
+    # ---------------- the loops ----------------------------------------------
+
+    def drive(prog: UnitProgram) -> None:
+        """The solve's loops over its units (``prog.loop``: a host read per
+        trip on the CPU, a WHILE node tested on the device in the graph)."""
+        prog.run("prologue")
+        for _ in prog.loop("any_al"):  # outer AL loop (al_ilqr.py:890)
+            prog.run("al_head")
+            for _ in prog.loop("any_in"):  # inner iLQR (al_ilqr.py:818)
+                prog.run("head")
+                for _ in prog.loop("any_ls"):  # line search (al_ilqr.py:750)
+                    prog.run("probe")
+                prog.run("tail")
+            prog.run("al_update")
+        prog.run("epilogue")
 
     def solve(xinit, params, z0, lam0=None) -> SolveResult:
         xinit = torch.as_tensor(xinit, **fdev)
@@ -683,18 +699,8 @@ def build_solver(
         )
         prog = program(xinit, P)
         prog.load(xinit=xinit, P=P, z0=z0, lam0=lam0)
+        prog.call(lambda: drive(prog))  # on the card: one graph replay
         c = prog.carry
-        # the host reads one flag the last unit left in the carry
-        prog.run("prologue")
-        while bool(c["any_al"]):  # outer AL loop (al_ilqr.py:890)
-            prog.run("al_head")
-            while bool(c["any_in"]):  # inner iLQR (al_ilqr.py:818)
-                prog.run("head")
-                while bool(c["any_ls"]):  # line search (al_ilqr.py:750)
-                    prog.run("probe")
-                prog.run("tail")
-            prog.run("al_update")
-        prog.run("epilogue")
         # fresh tensors: the next solve at this shape overwrites the carry
         return SolveResult(
             z=c["z"].clone(),

@@ -14,8 +14,10 @@ port's exported program is that kernel's library:
   problem's solve launches (``riccati_packed`` for holonomic problems,
   ``riccati_batched`` otherwise, as ``solver/al_ilqr.build_solver`` chooses;
   none for ``riccati_backend="scan"``), compiled for the problem's own shape
-  (``kernel_shapes``), copies it into the artifact directory and writes
-  ``export_meta.yaml`` beside it;
+  (``kernel_shapes``), and the library of the conditional WHILE nodes that
+  the solve's CUDA graph needs for its loops (``graph_cond``,
+  ``ops/graph_cond.py``; ``libraries``), copies them into the artifact
+  directory and writes ``export_meta.yaml`` beside them;
 * ``load_planner_solve(problem, path)`` checks that fingerprint against the
   running process and the sources in the tree, without calling ``nvcc``,
   and registers the copied library for the process
@@ -37,15 +39,16 @@ plain version.
 The fleet step (``export_fleet_step`` / ``load_fleet_step``, behind
 ``FleetRunner.export_step`` and ``FleetRunner(..., artifact_dir=...)``):
 the JAX package serialises the whole jitted fleet step. The port's compiled
-part of a fleet step is the same kernel library: phase 1 and every rescue
-tier launch one kernel at one shape, the problem's (``kernel_shapes``).
-``export_fleet_step`` copies it into the artifact directory beside
+part of a fleet step is the same pair of libraries: phase 1 and every
+rescue tier launch one kernel at one shape, the problem's
+(``kernel_shapes``), in a graph whose loops are WHILE nodes
+(``libraries``). ``export_fleet_step`` copies them into the artifact directory beside
 ``fleet_meta.yaml``, which holds the library fingerprint above and
 ``_fleet_fingerprint``'s fields of the JAX package: the batch size, the
 mesh width (``n_devices``), the tier schedule, ``stall_reset_after`` and
 the kick's three knobs. ``load_fleet_step`` checks it against the runner
-and registers the library without ``nvcc``; a mismatch or an unreadable
-file warns and is declined, as for the planner. The solver's CUDA graphs
+and registers the libraries without ``nvcc``; a mismatch or an unreadable
+file warns and is declined, as for the planner. The step's CUDA graph
 (``solver/units.py``), the port's counterpart of the jitted program, cannot
 be serialised: a process captures its own at its first step, as the JAX
 package's loaded export skips only the Python trace.
@@ -80,6 +83,13 @@ def kernel_shapes(problem) -> List[Tuple[str, tuple]]:
     d = problem.dims
     shape = (d.nx, d.nu + d.ns, d.ns) if stem == "riccati_packed" else (d.nx, d.nu + d.ns)
     return [(stem, shape)]
+
+
+def libraries(problem) -> List[Tuple[str, tuple]]:
+    """What the problem's solve loads on the card: its kernel
+    (``kernel_shapes``) and the WHILE-node library its CUDA graph's loops
+    need (``csrc/graph_cond.cu``, no shape)."""
+    return kernel_shapes(problem) + [("graph_cond", ())]
 
 
 def _device_fingerprint(device: torch.device) -> dict:
@@ -161,7 +171,7 @@ def export_planner_solve(problem, path: str, device="cuda") -> str:
     ``device`` (a CUDA device). Returns the fingerprint file's path. Raises
     where a library cannot be built (no ``nvcc``)."""
     dev = resolve_device(device)
-    kernels = kernel_shapes(problem)
+    kernels = libraries(problem)
     return _export(path, _fingerprint(problem, kernels, dev), kernels, EXPORT_META)
 
 
@@ -172,7 +182,7 @@ def load_planner_solve(problem, path: str, device="cuda") -> Optional[Dict[str, 
     absolute library path}, or None (with a warning) when the artifact holds
     no export, does not match, or cannot be read."""
     dev = resolve_device(device)
-    return _load(path, lambda: _fingerprint(problem, kernel_shapes(problem), dev), EXPORT_META)
+    return _load(path, lambda: _fingerprint(problem, libraries(problem), dev), EXPORT_META)
 
 
 # ------------------------------------------------------------- fleet step
@@ -183,7 +193,7 @@ def _fleet_fingerprint(runner) -> dict:
     the JAX package's fleet fields: batch, mesh width, tier schedule
     ``(ratio, al, ilqr, line search)``, stall reset and kick knobs."""
     return {
-        **_fingerprint(runner.problem, kernel_shapes(runner.problem), runner.device),
+        **_fingerprint(runner.problem, libraries(runner.problem), runner.device),
         "batch": int(runner.batch),
         "n_devices": int(runner.mesh.world),
         "tiers": [list(t) for t in runner._tier_spec],
@@ -197,7 +207,7 @@ def export_fleet_step(runner, path: str) -> str:
     the kernel library its phase 1 and rescue tiers launch, beside
     ``fleet_meta.yaml`` (``_fleet_fingerprint``). Returns the metadata
     file's path. Raises where the library cannot be built (no ``nvcc``)."""
-    kernels = kernel_shapes(runner.problem)
+    kernels = libraries(runner.problem)
     return _export(path, _fleet_fingerprint(runner), kernels, FLEET_META)
 
 

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 _M32 = 0xFFFFFFFF
@@ -95,8 +96,9 @@ def uniform(key: torch.Tensor, shape, minval=0.0, maxval=1.0) -> torch.Tensor:
     bits = (random_bits(key, shape) >> 9) | 0x3F800000
     floats = bits.to(torch.int32).view(torch.float32) - 1.0
     # the bounds and their span as float32 values, held in Python floats
-    lo, hi = torch.tensor([minval, maxval], dtype=torch.float32).tolist()
-    span = float(torch.tensor(hi, dtype=torch.float32) - torch.tensor(lo, dtype=torch.float32))
+    # (numpy's float32, so that no tensor is read on the host)
+    lo, hi = np.float32(minval), np.float32(maxval)
+    lo, span = float(lo), float(hi - lo)
     return torch.clamp_min(floats * span + lo, lo)
 
 
@@ -156,7 +158,6 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
 def normal(key: torch.Tensor, shape) -> torch.Tensor:
     """``jax.random.normal`` in float32 (``jax/_src/random.py:867-872``):
     ``sqrt(2) * erfinv(u)`` of ``u`` uniform in ``[nextafter(-1, 0), 1)``."""
-    one = torch.tensor(1.0, dtype=torch.float32)
-    lo = float(torch.nextafter(-one, torch.zeros_like(one)))  # -1 + 2**-24
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))  # -1 + 2**-24
     u = uniform(key, shape, lo, 1.0)
-    return float(torch.tensor(math.sqrt(2), dtype=torch.float32)) * erfinv(u)
+    return float(np.float32(math.sqrt(2))) * erfinv(u)

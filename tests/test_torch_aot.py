@@ -8,9 +8,12 @@ stand-in, and the library is the structured or general kernel compiled with
 g++ against ``tests/cuda_cpu_shim.h`` (``tests/test_torch_riccati_emulated.py``):
 a library with the launcher's C entry point. The loader must register it
 without calling ``nvcc``, and its launcher must compute the sweep (held to
-the plain version at the emulated tests' tolerances). The card runs the same
-round trip with the real library (``chip_smoke.py``'s deploy phase,
-``tests/test_torch_gpu.py``).
+the plain version at the emulated tests' tolerances). An artifact also
+carries the library of the solve graph's WHILE nodes (``csrc/graph_cond.cu``,
+``ops/graph_cond.py``): here a stand-in with its C entry points
+(``while_node_stub``), which the CPU never calls, registered beside the
+kernel. The card runs the same round trip with the real libraries
+(``chip_smoke.py``'s deploy phase, ``tests/test_torch_gpu.py``).
 """
 
 import json
@@ -65,6 +68,45 @@ def emulated_libs(tmp_path_factory):
     return _compile_all(tmp_path_factory.mktemp("emulated"), KERNELS.values())
 
 
+#: the C entry points of ``csrc/graph_cond.cu``, as a stand-in that fails each call
+WHILE_NODE_STUB = """
+int graph_cond_versions(int* r, int* d) { *r = 0; *d = 0; return 1; }
+int graph_cond_while_begin(void* s, const void* f, void* b, unsigned long long* h, void** g) { return 1; }
+int graph_cond_while_end(void* b, unsigned long long h, const void* f, unsigned long long* n) { return 1; }
+int graph_cond_abort(void* b) { return 0; }
+int graph_cond_count_nodes(void* g, unsigned long long* n) { return 1; }
+"""
+
+
+def while_node_stub(out_dir) -> str:
+    """A g++ build of ``WHILE_NODE_STUB``: the WHILE-node library's stand-in."""
+    src, lib = os.path.join(out_dir, "graph_cond_stub.c"), os.path.join(out_dir, "libgraph_cond_stub.so")
+    with open(src, "w") as f:
+        f.write(WHILE_NODE_STUB)
+    subprocess.run(["g++", "-x", "c", "-shared", "-fPIC", "-o", lib, src], check=True)
+    return lib
+
+
+def built(lib, stub):
+    """A stand-in for ``_build.build_library``: ``lib`` for the kernel,
+    ``stub`` for the WHILE-node library."""
+    return lambda stem, shape: (stub if stem == "graph_cond" else lib, "")
+
+
+def libraries_meta(stem, shape) -> dict:
+    """An artifact's ``kernels`` entry: the kernel and the WHILE-node library."""
+    return {stem: {"file": f"lib{stem}.so", "shape": list(shape), "source_key": _build.source_key(stem, shape)},
+            "graph_cond": {"file": "libgraph_cond.so", "shape": [],
+                           "source_key": _build.source_key("graph_cond", ())}}
+
+
+@pytest.fixture(scope="module")
+def stub_lib(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to build the WHILE-node library's stand-in")
+    return while_node_stub(str(tmp_path_factory.mktemp("stub")))
+
+
 @pytest.fixture
 def no_nvcc(monkeypatch, tmp_path):
     """A process in which ``nvcc`` cannot be reached and no kernel library is
@@ -79,11 +121,12 @@ def no_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv(compile_cache.CACHE_ENV, str(tmp_path / "cache"))
 
 
-def _export(monkeypatch, problem, path, lib):
-    """``export_planner_solve`` for the stand-in card, its build returning ``lib``."""
+def _export(monkeypatch, problem, path, lib, stub=None):
+    """``export_planner_solve`` for the stand-in card, its build returning
+    ``lib`` for the kernel and ``stub`` (else ``lib``) for the WHILE nodes."""
     monkeypatch.setattr(aot, "_device_fingerprint", lambda device: dict(CARD))
     with monkeypatch.context() as m:
-        m.setattr(_build, "build_library", lambda stem, shape: (lib, ""))
+        m.setattr(_build, "build_library", built(lib, stub or lib))
         return aot.export_planner_solve(problem, str(path), device="cpu")
 
 
@@ -97,19 +140,20 @@ def test_generate_solver_on_the_cpu_writes_the_yamls_only(tmp_path):
 
 
 @pytest.mark.parametrize("kind", sorted(KERNELS))
-def test_exported_library_loads_without_nvcc(kind, emulated_libs, no_nvcc, monkeypatch, tmp_path):
+def test_exported_library_loads_without_nvcc(kind, emulated_libs, stub_lib, no_nvcc, monkeypatch, tmp_path):
     problem, (stem, shape) = _problem(kind), KERNELS[kind]
     assert aot.kernel_shapes(problem) == [(stem, shape)]
-    meta_path = _export(monkeypatch, problem, tmp_path / "artifact", emulated_libs[(stem, shape)])
+    assert aot.libraries(problem) == [(stem, shape), ("graph_cond", ())]
+    meta_path = _export(monkeypatch, problem, tmp_path / "artifact", emulated_libs[(stem, shape)], stub_lib)
     with open(meta_path) as f:
         meta = yaml.safe_load(f)
-    assert meta["kernels"] == {stem: {"file": f"lib{stem}.so", "shape": list(shape),
-                                      "source_key": _build.source_key(stem, shape)}}
+    assert meta["kernels"] == libraries_meta(stem, shape)
     assert meta["torch"] == torch.__version__ and meta["solver_name"] == problem.solver_name
 
     libs = aot.load_planner_solve(problem, str(tmp_path / "artifact"), device="cpu")
     want = os.path.abspath(tmp_path / "artifact" / f"lib{stem}.so")
-    assert libs == {stem: want}
+    assert libs == {stem: want, "graph_cond": os.path.abspath(tmp_path / "artifact" / "libgraph_cond.so")}
+    assert _build.load_library("graph_cond", ())._name == libs["graph_cond"]
     module = rp if stem == "riccati_packed" else rb
     lib = module.build_kernel(*shape)  # load_library: the registered copy, no nvcc
     assert lib._name == want and _build.load_library(stem, shape) is lib

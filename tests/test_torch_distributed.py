@@ -138,11 +138,11 @@ def test_each_shard_equals_a_world1_half(problem, scenario, two_ranks, rank):
     rows = slice(rank * HALF, (rank + 1) * HALF)
     runner = FleetRunner(problem, HALF, device="cpu", **worker.RUNNER_KW)
     flags = []
-    worker.record_flags(runner, flags)
     scen = FleetScenario(scenario.xinit[rows], scenario.params[rows])
     state = runner.init_state(scen)
     for i in range(STEPS):
         state, _ = runner.step(state, scen)
+        flags.append(worker.last_flags(runner))
         got = interop.state_to_numpy(state)
         for k in STATE:
             want = ranks[rank][f"s{i}_{k}"]

@@ -2,7 +2,8 @@
 the CPU, the counterpart of ``tests/test_aot_export.py::test_fleet_step_export_roundtrip``.
 
 The port's compiled part of a fleet step is the kernel library its solves
-launch (``utils/aot.py``), written beside ``fleet_meta.yaml``. As in
+launch and the library of its graph's WHILE nodes (``utils/aot.py``),
+written beside ``fleet_meta.yaml``. As in
 ``tests/test_torch_aot.py``, there is no card and no ``nvcc`` here: the card's
 fingerprint is a fixed stand-in and the library is the structured kernel
 compiled with g++ against ``tests/cuda_cpu_shim.h``. A fresh process must
@@ -29,7 +30,7 @@ from robot_mpcs_tpu_torch.ops import _build
 from robot_mpcs_tpu_torch.parallel.fleet import FleetRunner, random_fleet_scenario
 from robot_mpcs_tpu_torch.utils import aot
 
-from test_torch_aot import CARD, no_nvcc  # noqa: F401  (fixture)
+from test_torch_aot import CARD, built, libraries_meta, no_nvcc, stub_lib  # noqa: F401  (fixtures)
 
 torch.set_num_threads(2)
 
@@ -55,41 +56,45 @@ def problem():
     return MpcProblem(Setup.from_dict(point_robot_setup()))
 
 
-def _export(monkeypatch, runner, path, lib):
-    """``export_step`` for the stand-in card, its build returning ``lib``."""
+def _export(monkeypatch, runner, path, lib, stub=None):
+    """``export_step`` for the stand-in card, its build returning ``lib`` for
+    the kernel and ``stub`` (else ``lib``) for the WHILE nodes."""
     monkeypatch.setattr(aot, "_device_fingerprint", lambda device: dict(CARD))
     with monkeypatch.context() as m:
-        m.setattr(_build, "build_library", lambda stem, shape: (lib, ""))
+        m.setattr(_build, "build_library", built(lib, stub or lib))
         return runner.export_step(str(path))
 
 
-def test_export_step_writes_the_library_and_fleet_meta(problem, emulated_lib, no_nvcc, monkeypatch, tmp_path):
+def test_export_step_writes_the_library_and_fleet_meta(problem, emulated_lib, stub_lib, no_nvcc, monkeypatch,
+                                                       tmp_path):
     runner = FleetRunner(problem, **RUNNER)
-    out = _export(monkeypatch, runner, tmp_path / "fleet", emulated_lib)
+    out = _export(monkeypatch, runner, tmp_path / "fleet", emulated_lib, stub_lib)
     assert out == str(tmp_path / "fleet" / aot.FLEET_META)
-    assert sorted(os.listdir(tmp_path / "fleet")) == [aot.FLEET_META, f"lib{STEM}.so"]
+    assert sorted(os.listdir(tmp_path / "fleet")) == [aot.FLEET_META, "libgraph_cond.so", f"lib{STEM}.so"]
     with open(out) as f:
         meta = yaml.safe_load(f)
     # the JAX package's _fleet_fingerprint fields ...
     assert meta["batch"] == B and meta["n_devices"] == 1 and meta["stall_reset_after"] == 3
     assert meta["tiers"] == [[8, 5, 10, 4]]  # ratio, al, ilqr, line search: the default tier
     assert meta["kick"] == [4, 0.15, 0.5]
-    # ... and the library's: one kernel at the problem's shape serves every tier
-    assert meta["kernels"] == {STEM: {"file": f"lib{STEM}.so", "shape": list(SHAPE),
-                                      "source_key": _build.source_key(STEM, SHAPE)}}
+    # ... and the libraries': one kernel at the problem's shape serves every
+    # tier, in a graph whose loops are WHILE nodes
+    assert meta["kernels"] == libraries_meta(STEM, SHAPE)
     assert meta["torch"] == torch.__version__ and meta["N"] == problem.dims.N
     # an artifact_dir runner of the same configuration registers it, no nvcc
     FleetRunner(problem, **RUNNER, artifact_dir=str(tmp_path / "fleet"))
     assert _build._libs[(STEM, SHAPE)]._name == str(tmp_path / "fleet" / f"lib{STEM}.so")
+    assert _build._libs[("graph_cond", ())]._name == str(tmp_path / "fleet" / "libgraph_cond.so")
     assert not os.path.exists(tmp_path / "cache")
 
 
-def test_fresh_process_steps_the_fleet_from_the_export(problem, emulated_lib, no_nvcc, monkeypatch, tmp_path):
+def test_fresh_process_steps_the_fleet_from_the_export(problem, emulated_lib, stub_lib, no_nvcc, monkeypatch,
+                                                       tmp_path):
     """A fresh interpreter with ``nvcc`` unreachable constructs the runner
     with ``artifact_dir``, registers the library and steps the fleet as the
     exporting process does."""
     runner = FleetRunner(problem, **RUNNER)
-    _export(monkeypatch, runner, tmp_path / "fleet", emulated_lib)
+    _export(monkeypatch, runner, tmp_path / "fleet", emulated_lib, stub_lib)
     scenario = random_fleet_scenario(problem, B, seed=3)
     state, metrics = runner.run(scenario, 1)
     worker = textwrap.dedent(f"""
@@ -120,7 +125,8 @@ def test_fresh_process_steps_the_fleet_from_the_export(problem, emulated_lib, no
                          env=env, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
-    assert got["libs"] == {STEM: str(tmp_path / "fleet" / f"lib{STEM}.so")}
+    assert got["libs"] == {STEM: str(tmp_path / "fleet" / f"lib{STEM}.so"),
+                           "graph_cond": str(tmp_path / "fleet" / "libgraph_cond.so")}
     assert not os.path.exists(tmp_path / "cache")  # nothing built
     np.testing.assert_array_equal(np.asarray(got["x"], np.float32), state.x.numpy())
     np.testing.assert_array_equal(np.asarray(got["z"], np.float32), state.z_warm.numpy())

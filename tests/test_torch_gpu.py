@@ -11,6 +11,9 @@ sweep at those of ``tests/test_riccati_pallas.py:70-75`` (rtol 2e-3, atol
 2e-4): f32 with sums in another order, FMA contraction on the card.
 """
 
+import contextlib
+
+import numpy as np
 import pytest
 import torch
 
@@ -628,9 +631,10 @@ def _panda_cold(B):
 @pytest.mark.gpu
 @pytest.mark.parametrize("B", [1, 64])
 def test_graphed_solve_equals_eager_on_card(B):
-    """The solver's units replayed as CUDA graphs compute the eager loop's
-    solve bit for bit, with the same kernel launches by batch size, and a
-    replayed solve returns tensors a later solve does not overwrite."""
+    """The solve captured as one CUDA graph (its loops WHILE nodes) computes
+    the eager loop's solve bit for bit, with the same kernel launches by
+    batch size; a later solve is one replay with no host read, and returns
+    tensors a later solve does not overwrite."""
     _need_card()
     from robot_mpcs_tpu_torch.solver import units
 
@@ -640,9 +644,10 @@ def test_graphed_solve_equals_eager_on_card(B):
     solve = problem.build_solver(device="cuda")
     first = solve(*args)  # warm-up and capture
     replays = units.replays
-    with chip_smoke.launches_by_batch(1) as tally:
+    with chip_smoke.launches_by_batch(1) as tally, chip_smoke.program_calls() as calls:
         again = solve(*args)
-    assert units.replays > replays and tally == eager_tally
+    assert units.replays == replays + 1 and tally == eager_tally
+    assert [(reads, replayed) for _, reads, replayed, _ in calls] == [(0, 1)]  # one replay, no host read
     for name, a, b, c in zip(want._fields, want, first, again):
         assert torch.equal(a, b) and torch.equal(a, c), name
     other = [args[0] + 0.01] + args[1:]
@@ -653,22 +658,106 @@ def test_graphed_solve_equals_eager_on_card(B):
 @pytest.mark.gpu
 def test_unit_that_cannot_be_captured_raises_on_card():
     """A unit whose callbacks read a value on the host cannot be captured:
-    the solve raises naming the unit, and never carries on eagerly."""
+    the solve raises naming the unit, and never carries on eagerly. The
+    read is in the split path's FK rows (``q_rows``), which the warm-up runs
+    eagerly and the AL head is the first captured unit to call."""
     _need_card()
     from robot_mpcs_tpu_torch.solver.al_ilqr import build_solver
 
     problem, args = _panda_cold(8)
-    stage, w_lb, w_ub = problem.solver_callbacks()
-    values = stage.values
+    stage, split, w_lb, w_ub = problem.split_solver_callbacks()
+    q_rows = stage.q_rows
 
-    def reading(x, w, p):
-        out = values(x, w, p)
-        return out * float(out.abs().max() >= 0.0)  # a host read
+    def reading(q, p, jac):
+        vq, Jq = q_rows(q, p, jac)
+        return vq * float(vq.abs().max() >= 0.0), Jq  # a host read
 
     d = problem.dims
-    solve = build_solver(stage._replace(values=reading), nx=d.nx, ns=d.ns, nu=d.nu, N=d.N,
-                         n_con=problem.n_con, n_res=problem.n_res, n_bar=problem.n_bar, w_lb=w_lb,
-                         w_ub=w_ub, cfg=problem.setup.solver,
-                         pinned_rows=problem.reference_constraint_rows()[1], device="cuda")
+    solve = build_solver(stage._replace(q_rows=reading), nx=d.nx, ns=d.ns, nu=d.nu, N=d.N,
+                         n_con=problem.n_con, w_lb=w_lb, w_ub=w_ub, cfg=problem.setup.solver,
+                         n_q=split["n_q"], q_seg=split["q_seg"], aff_seg=split["aff_seg"],
+                         S_aff=split["S_aff"], device="cuda")
     with pytest.raises(RuntimeError, match="solver unit 'al_head' could not be captured"):
         solve(*args)
+
+
+def _fleet_steps(runner, scen, steps):
+    """``steps`` steps from the initial state: per step the state, metrics
+    and merged exit flags on the CPU, the host reads and replays inside the
+    step; with the launches by (kernel, B)."""
+    from robot_mpcs_tpu_torch.solver import units
+
+    state, out = runner.init_state(scen), []
+    with chip_smoke.launches_by_batch(steps) as tally:
+        for _ in range(steps):
+            replays = units.replays
+            with chip_smoke.host_reads() as reads:
+                state, m = runner.step(state, scen)
+            out.append(([t.cpu() for t in state], [t.cpu() for t in m],
+                        runner._last_program.carry["exitflag"].cpu(), reads[0], units.replays - replays))
+    return out, dict(tally)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,steps,kick_after", [(512, 3, 2), (4096, 2, 25)])
+def test_whole_step_graph_equals_eager_on_card(B, steps, kick_after):
+    """``FleetRunner.step`` captured whole (phase 1, the rescue tier, the
+    post-step, the kick's draw, the metrics) equals the eager units bit for
+    bit, the kick live at B=512; launches by (kernel, B), counted on the
+    device under the graph, equal the eager counts (16 at 4096 + 50 at 512 a
+    step at full width); each step after the first is one replay with no
+    host read."""
+    _need_card()
+    from robot_mpcs_tpu_torch.parallel.fleet import FleetRunner, random_fleet_scenario
+    from robot_mpcs_tpu_torch.solver import units
+
+    problem, _ = _panda_cold(1)
+    scenario = random_fleet_scenario(problem, B, seed=0, **chip_smoke.sampler("panda"))
+    runs = {}
+    for mode in ("eager", "graphed"):
+        runner = FleetRunner(problem, B, device="cuda", kick_after=kick_after)
+        with units._eager() if mode == "eager" else contextlib.nullcontext():
+            runs[mode] = _fleet_steps(runner, runner.to_device(scenario), steps)
+    (eager, eager_tally), (graphed, tally) = runs["eager"], runs["graphed"]
+    assert tally == eager_tally
+    if B == 4096:
+        assert tally == {("riccati_backward_packed", 4096): 16 * steps, ("riccati_backward_packed", 512): 50 * steps}
+    for i, (e, g) in enumerate(zip(eager, graphed)):
+        for a, b in zip(e[0] + e[1] + [e[2]], g[0] + g[1] + [g[2]]):
+            assert torch.equal(a, b), i
+        if i:
+            assert g[3:] == (0, 1), i  # no host read, one replay
+
+
+@pytest.mark.gpu
+def test_planner_solve_is_one_replay_on_card():
+    """A B=1 planner solve after the first is one graph replay with no host
+    read inside it, and its action equals the eager planner's."""
+    _need_card()
+    from robot_mpcs_tpu_torch.solver import units
+
+    runs = {}
+    for mode in ("eager", "graphed"):
+        with (units._eager() if mode == "eager" else contextlib.nullcontext()), \
+                chip_smoke.program_calls() as calls:
+            runs[mode] = (chip_smoke.planner_run("panda", "cuda", 4, replay=0)[1], calls)
+    (e, _), (g, calls) = runs["eager"], runs["graphed"]
+    assert all(np.array_equal(a, b) for a, b in zip(e["actions"], g["actions"])) and e["flags"] == g["flags"]
+    assert [(reads, replays) for _, reads, replays, _ in calls[1:]] == [(0, 1)] * (len(calls) - 1)
+
+
+@pytest.mark.gpu
+def test_solver_without_conditional_nodes_raises_on_card(monkeypatch):
+    """No fallback: where the card or driver has no conditional WHILE nodes
+    (the capability check forced false), a solve raises naming them before
+    it runs anything, and never carries on eagerly or per unit."""
+    _need_card()
+    from robot_mpcs_tpu_torch.ops import graph_cond
+
+    problem, args = _panda_cold(8)
+    monkeypatch.setattr(graph_cond, "missing", lambda device: "forced off by the test")
+    solve = problem.build_solver(device="cuda")
+    before = rp.riccati_backward_packed.launches
+    with pytest.raises(RuntimeError, match="conditional graph nodes.*forced off"):
+        solve(*args)
+    assert rp.riccati_backward_packed.launches == before

@@ -32,15 +32,9 @@ SAMPLER = dict(goal_box=((-2, -2, 0.05), (2, 2, 0.05)), obstacle_box=((-1, -1, 0
 RUNNER_KW = dict(compaction_ratio=2, kick_scale=0.0)
 
 
-def record_flags(runner, flags):
-    """Keep each step's exit flags (the post-step sees the merged result)."""
-    post = runner._post_step
-
-    def wrapped(state, scenario, res):
-        flags.append(res.exitflag.cpu().numpy())
-        return post(state, scenario, res)
-
-    runner._post_step = wrapped
+def last_flags(runner):
+    """The merged exit flags of the runner's last step (its step program's carry)."""
+    return runner._last_program.carry["exitflag"].cpu().numpy()
 
 
 def main() -> None:
@@ -53,11 +47,11 @@ def main() -> None:
     problem = MpcProblem(Setup.from_dict(point_robot_setup()))
     runner = FleetRunner(problem, B, mesh=mesh, **RUNNER_KW)
     flags, saved = [], {}
-    record_flags(runner, flags)
     scen = runner.shard_scenario(random_fleet_scenario(problem, B, seed=SEED, **SAMPLER))
     state = runner.init_state(scen)
     for i in range(STEPS):
         state, m = runner.step(state, scen)
+        flags.append(last_flags(runner))
         for k, v in m._asdict().items():
             saved[f"m{i}_{k}"] = np.asarray(float(v))
         for k, v in interop.state_to_numpy(state).items():
