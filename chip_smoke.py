@@ -71,9 +71,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    with their own launch counts: the general kernel must launch at B=1024
    and 128, every metric be finite, the last step's converged fraction >=
    0.9 and its converged lanes feasible to 1e-4. Prints each step's wall
-   ms, converged fraction, goal distance and mean iterations, launches by
-   batch size, its ``program_record``, then 64 lanes of the last state
-   solved on the card and on the CPU at phase 9's bars.
+   ms, converged fraction, goal distance, mean iterations and overflow
+   beside the JAX package's on a CPU (``MOBILE_JAX_CPU``, from
+   ``tests/torch_mobile_window.py``), whose means over steps 2-5 the card's
+   must meet within ``MOBILE_BARS`` (0.005 converged, 1% iterations, 0.5%
+   goal distance); then launches by batch size, its ``program_record``, and
+   64 lanes of the last state solved on the card and on the CPU at phase
+   9's bars.
 5a. graph phase (``graph_phase``): each program captured whole as one CUDA
    graph, its loops conditional WHILE nodes (``ops/graph_cond.py``), held
    to the same units run eagerly (``units._eager``) from one state, bit for
@@ -97,7 +101,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the unkicked shift) is the CPU's draw for the
    same key within 1e-5, every number is finite, the last step's converged
    fraction >= 0.9 with converged lanes feasible to 1e-4, and the
-   structured kernel launched at B=1024 and 128.
+   structured kernel launched at B=1024 and 128. Then the same for the
+   bench's boxer scenario (``BOXER_KICK_STEPS`` = 15 steps, the first 12
+   graphed, as its lanes are first kicked at step 12; the draw at the
+   boxer's (1024, 10, 2) also held bit for bit), through the general kernel
+   at B=1024 and 128.
 6. planner path: the single-robot receding-horizon planner (``MPCPlanner``
    with ``KinematicSim``, ``FreeSpaceDecomposition``, ``GlobalPlanner``) on
    the card, each run read with its own launch counts (set to 0 before it):
@@ -153,7 +161,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    each rank's step times (the ranks share one card and host: no scaling
    is read from them). The W=2 checkpoint loaded at W=1 equals the
    concatenated shards. The kernels were built in phase 2, so the ranks
-   load the cached libraries.
+   load the cached libraries. Then the kicked two-rank run of
+   ``tests/torch_distributed_worker.py`` (``kick``: the pointRobot fleet at
+   B=32, 16 lanes a rank, ``kick_after=2``, 5 eager steps; gloo, both ranks
+   on the card): identical metrics on both ranks at every step, lanes of
+   both ranks kicked, each rank's kicked lanes carrying the CPU's draw for
+   (step, its rank) within 1e-5 and not the other rank's, no noise on lanes
+   not kicked.
 11. reference form, at a warm panda iterate of the rescue shape (B=512,
    the path phase's state): the stacked ``values`` expansion equals the
    split path's (every block within 1e-4 relative); the two solves' flags
@@ -204,6 +218,27 @@ MOBILE_BATCH = 1024
 MOBILE_STEPS = 6
 MOBILE_SAMPLER = dict(goal_box=((-1.5, -1.5, 0.3), (1.5, 1.5, 1.0)),
                       obstacle_box=((4.0, 4.0, 0.2), (5.0, 5.0, 1.0)))
+#: the JAX package's mobile-panda fleet of ``mobile_phase`` (the JAX draw of
+#: the same scenario, the same runner) on a CPU, per step 0-5: printed by
+#: ``tests/torch_mobile_window.py`` at B=1024 (JAX 0.9.0); the port on the
+#: CPU agrees with it over steps 2-5 at the bars below
+MOBILE_JAX_CPU = {
+    "converged_fraction": (0.0, 0.0, 0.1171875, 0.2451171875, 0.46484375, 0.9755859375),
+    "mean_iterations": (18.2373046875, 14.9833984375, 14.3876953125, 13.6943359375, 9.9375, 7.390625),
+    "mean_goal_distance": (1.4329121112823486, 1.415941596031189, 1.3891513347625732, 1.353181004524231,
+                           1.3085904121398926, 1.2562544345855713),
+    "rescue_overflow_fraction": (0.875, 0.875, 0.8584070801734924, 0.8344113826751709, 0.7664233446121216, 0.0),
+}
+#: the steps whose means are held (steps 0 and 1 converge no lane), and the
+#: bars on those means, absolute for the converged fraction and relative
+#: otherwise (``tests/test_torch_mobile_window.py``, itself
+#: ``tests/test_torch_bench_window.py``'s). Not widened for the card's f32
+#: order: ``tests/test_torch_mobile_fleet.py`` shows two f32 orders (the JAX
+#: package's and the port's, at B=64) flip no phase-1 exit flag and rescue
+#: the same lanes at every step, so the card's order is held to the bars the
+#: port on the CPU is held to
+MOBILE_WINDOW = (2, 6)
+MOBILE_BARS = {"converged_fraction": 0.005, "mean_iterations": 0.01, "mean_goal_distance": 0.005}
 #: the kick fleet: the bench's panda scenario at B lanes with the default
 #: rescue tier and the kick after KICK_AFTER steps without improvement, so
 #: that lanes are kicked within its steps; the card's draw is held to the
@@ -213,6 +248,16 @@ KICK_STEPS = 4
 KICK_AFTER = 2
 KICK_DRAW = (4096, 20, 7)
 KICK_KEYS = ((0, 0), (0, 1), (25, 0), (25, 1))
+#: the boxer kick fleet: bench.py's boxer scenario at KICK_BATCH lanes, the
+#: same runner. A boxer lane drives straight at its goal and improves at every
+#: step until it parks, so the JAX fleet on the CPU first kicks lanes at step
+#: 12 (3 lanes), then 45, 127, 91 at steps 13-15 (``tests/test_torch_boxer_kick.py``
+#: shows the same from step 13 at B=64): steps 0-11 run graphed, 12-14 eagerly,
+#: where the noise is held to the CPU's draw. Its draw is (B, N, nz - nx) =
+#: (1024, 10, 2), held bit for bit at (step 12, rank 0)
+BOXER_KICK_STEPS = 15
+BOXER_KICK_EAGER_FROM = 12
+BOXER_KICK_KEY = (12, 0, (KICK_BATCH, 10, 2))
 
 
 def sampler(name):
@@ -885,7 +930,7 @@ def mobile_phase(torch, rb):
     torch.cuda.synchronize()
     print(f"mobile panda set-up: {time.perf_counter() - t0:.1f} s", flush=True)
     rb.riccati_backward_batched.launches = 0
-    step_ms = []
+    step_ms, records = [], []
     t0 = time.perf_counter()
     with launches_by_batch(MOBILE_STEPS) as tally:
         for i in range(MOBILE_STEPS):
@@ -894,12 +939,15 @@ def mobile_phase(torch, rb):
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t) * 1e3)
             m = {k: float(v) for k, v in metrics._asdict().items()}
+            records.append(m)
             print(json.dumps({"mobile_step": i, "step_ms": step_ms[-1], **{k: m[k] for k in (
                 "converged_fraction", "mean_goal_distance", "mean_iterations", "max_violation_converged",
-                "rescue_overflow_fraction")}}), flush=True)
+                "rescue_overflow_fraction")}, "jax_cpu": {k: v[i] for k, v in MOBILE_JAX_CPU.items()}}),
+                flush=True)
             check(all(np.isfinite(v) for v in m.values()), f"non-finite mobile panda metrics at step {i}: {m}")
     launches = rb.riccati_backward_batched.launches
     batches = {B for name, B in tally if name == "riccati_backward_batched"}
+    hold_mobile_window(records)
     check(launches > 0, "the mobile panda fleet never launched the general kernel")
     check({MOBILE_BATCH, MOBILE_BATCH // 8} <= batches,
           f"the mobile panda fleet launched the general kernel at B = {sorted(batches)}")
@@ -922,90 +970,143 @@ def mobile_phase(torch, rb):
     return launches
 
 
-def kick_draw(torch, step, rank, device):
-    """The fleet's kick noise for (step, rank) at ``KICK_DRAW``: the key
-    folded as ``FleetRunner.step`` folds it, then the bits, uniforms and
-    normals of ``utils/prng.py``."""
+def hold_mobile_window(records):
+    """The card's mobile-panda fleet (``records``: per step its metrics)
+    against the JAX package's on a CPU (``MOBILE_JAX_CPU``): the means over
+    ``MOBILE_WINDOW`` within ``MOBILE_BARS``."""
+    lo, hi = MOBILE_WINDOW
+    out = {}
+    for k, bar in MOBILE_BARS.items():
+        card, ref = float(np.mean([r[k] for r in records[lo:hi]])), float(np.mean(MOBILE_JAX_CPU[k][lo:hi]))
+        limit = bar if k == "converged_fraction" else bar * ref
+        out[k] = {"card": card, "jax_cpu": ref, "gap": abs(card - ref), "limit": limit}
+    print(json.dumps({"mobile_window_vs_jax_cpu": out, "steps": list(MOBILE_WINDOW)}), flush=True)
+    for k, v in out.items():
+        check(v["gap"] <= v["limit"], f"mobile panda: the mean {k} over steps {lo}-{hi - 1} is {v['card']}, "
+                                      f"the JAX package's on a CPU {v['jax_cpu']} (limit {v['limit']})")
+
+
+def kick_draw(torch, step, rank, device, shape=KICK_DRAW):
+    """The fleet's kick noise for (step, rank) at ``shape``: the key folded
+    as ``FleetRunner.step`` folds it, then the bits, uniforms and normals of
+    ``utils/prng.py``."""
     from robot_mpcs_tpu_torch.parallel.fleet import KICK_SEED
     from robot_mpcs_tpu_torch.utils import prng
 
     step = torch.tensor(step, dtype=torch.int32, device=device)
     key = prng.fold_in(prng.fold_in(prng.prng_key(KICK_SEED, device=device), step), rank)
-    return key, prng.random_bits(key, KICK_DRAW), prng.uniform(key, KICK_DRAW), prng.normal(key, KICK_DRAW)
+    return key, prng.random_bits(key, shape), prng.uniform(key, shape), prng.normal(key, shape)
 
 
-def kick_fleet_run(torch, device, batch=KICK_BATCH, steps=KICK_STEPS):
-    """The bench's panda scenario (the port's ``bench._scenario_for``) at
-    ``batch`` lanes, the default rescue tier and the kick after
-    ``KICK_AFTER`` steps, for ``steps`` steps on ``device``. Returns per
-    step its metrics, its kicked lanes and the largest difference between
-    the noise a kicked lane got (its warm start less the unkicked shift) and
-    the CPU's draw for the same key."""
-    from robot_mpcs_tpu_torch import bench as tbench
-    from robot_mpcs_tpu_torch.parallel.fleet import KICK_SEED, FleetRunner
-    from robot_mpcs_tpu_torch.solver import units
+def cpu_kick_noise(step, rank, shape):
+    """The CPU's draw of the kick noise for (step, rank) at ``shape``."""
+    from robot_mpcs_tpu_torch.parallel.fleet import KICK_SEED
     from robot_mpcs_tpu_torch.utils import prng
 
-    problem, _ = tbench._load_problem("panda")
+    return prng.normal(prng.fold_in(prng.fold_in(prng.prng_key(KICK_SEED), step), rank), tuple(shape))
+
+
+def kicked_lanes(prev, new):
+    """Lanes kicked by the step from fleet state ``prev`` to ``new``: its
+    ``no_improve`` reached ``KICK_AFTER`` and fell to 0 without an
+    improvement of the best goal distance (fleet.py:309-319)."""
+    improved = new.best_gdist < prev.best_gdist - 5e-3
+    return (prev.no_improve + 1 >= KICK_AFTER) & (new.no_improve == 0) & ~improved
+
+
+def kick_fleet_run(torch, device, kind="panda", batch=KICK_BATCH, steps=KICK_STEPS, eager_from=0):
+    """The bench's ``kind`` scenario (the port's ``bench._scenario_for``) at
+    ``batch`` lanes, the default rescue tier and the kick after
+    ``KICK_AFTER`` steps, for ``steps`` steps on ``device``: the first
+    ``eager_from`` as the runner runs them (graphed on the card), the rest
+    eagerly (``units._eager``) so that each step's unkicked shift can be read
+    from its post-step; ``graph_phase`` holds the graphed panda kick fleet to
+    the eager one bit for bit. Returns per step its metrics, its kicked
+    lanes and, for an eager step, the largest difference between the noise a
+    kicked lane got (its warm start less the unkicked shift) and the CPU's
+    draw for the same key."""
+    from robot_mpcs_tpu_torch import bench as tbench
+    from robot_mpcs_tpu_torch.parallel.fleet import FleetRunner
+    from robot_mpcs_tpu_torch.solver import units
+
+    problem, _ = tbench._load_problem(kind)
     runner = FleetRunner(problem, batch, device=device, kick_after=KICK_AFTER)
-    scen = runner.to_device(tbench._scenario_for(problem, batch, "panda"))
+    scen = runner.to_device(tbench._scenario_for(problem, batch, kind))
     state = runner.init_state(scen)
-    # eager (units._eager) so that each step's unkicked shift can be read
-    # from its post-step; graph_phase holds the graphed kick fleet to this
-    # eager run bit for bit
-    with units._eager():
-        post_step, shifts = runner._post_step, []
+    post_step, shifts = runner._post_step, []
 
-        def recording_post_step(*args):
-            out = post_step(*args)
-            shifts.append((out[1].clone(), out[-1].clone()))  # (z_shift, kick) before the noise
-            return out
+    def recording_post_step(*args):
+        out = post_step(*args)
+        shifts.append((out[1].clone(), out[-1].clone()))  # (z_shift, kick) before the noise
+        return out
 
-        runner._post_step = recording_post_step
-        nx, records = problem.dims.nx, []
-        for i in range(steps):
-            t = time.perf_counter()
+    nx, records = problem.dims.nx, []
+    for i in range(steps):
+        eager = i >= eager_from
+        runner._post_step = recording_post_step if eager else post_step
+        prev = state
+        t = time.perf_counter()
+        with units._eager() if eager else contextlib.nullcontext():
             state, metrics = runner.step(state, scen)
-            m = {k: float(v) for k, v in metrics._asdict().items()}  # synchronizes
-            step_ms = (time.perf_counter() - t) * 1e3
-            z_shift, kick = shifts[-1]
-            kicked = int(kick.sum())
-            noise_err = None
-            if kicked:
-                want = prng.normal(prng.fold_in(prng.fold_in(prng.prng_key(KICK_SEED), i), 0),
-                                   tuple(z_shift[..., nx:].shape))
+        m = {k: float(v) for k, v in metrics._asdict().items()}  # synchronizes
+        step_ms = (time.perf_counter() - t) * 1e3
+        kick = kicked_lanes(prev, state)
+        noise_err = None
+        if eager:
+            z_shift, flags = shifts[-1]
+            check(torch.equal(flags, kick), f"{kind} kick fleet step {i}: its kick flags are not what its states show")
+            if int(kick.sum()):
+                want = cpu_kick_noise(i, 0, z_shift[..., nx:].shape)
                 got = (state.z_warm[..., nx:] - z_shift[..., nx:]).cpu()
                 k = kick.cpu()
                 noise_err = float((got[k] - want[k]).abs().max())
-                check(bool((got[~k] == 0).all()), f"kick fleet step {i}: noise on lanes not kicked")
-            records.append({"kick_step": i, "step_ms": step_ms, "kicked": kicked,
-                            "noise_vs_cpu_draw": noise_err, **{k: m[k] for k in (
-                                "converged_fraction", "mean_goal_distance", "mean_iterations",
-                                "max_violation_converged", "rescue_overflow_fraction")}})
-            print(json.dumps(records[-1]), flush=True)
-            check(all(np.isfinite(v) for v in m.values()), f"non-finite kick fleet metrics at step {i}: {m}")
+                check(bool((got[~k] == 0).all()), f"{kind} kick fleet step {i}: noise on lanes not kicked")
+        records.append({"kick_fleet": kind, "kick_step": i, "eager": eager, "step_ms": step_ms,
+                        "kicked": int(kick.sum()), "noise_vs_cpu_draw": noise_err, **{k: m[k] for k in (
+                            "converged_fraction", "mean_goal_distance", "mean_iterations",
+                            "max_violation_converged", "rescue_overflow_fraction")}})
+        print(json.dumps(records[-1]), flush=True)
+        check(all(np.isfinite(v) for v in m.values()), f"non-finite {kind} kick fleet metrics at step {i}: {m}")
+    runner._post_step = post_step
     check(bool(torch.isfinite(state.x).all() and torch.isfinite(state.z_warm).all()),
-          "non-finite kick fleet state")
+          f"non-finite {kind} kick fleet state")
     return records
 
 
-def kick_phase(torch, rp):
+def hold_kick_fleet(kind, records, tally, kernel, batch):
+    """A kick fleet's checks: lanes kicked in its eager steps, each kicked
+    lane's noise the CPU's draw within 1e-5, converged >= 0.9 at the last
+    step with its converged lanes feasible to 1e-4, ``kernel`` launched at
+    ``batch`` and its rescue tier's ``batch // 8``."""
+    batches = {B for name, B in tally if name == kernel}
+    kicked = sum(r["kicked"] for r in records if r["eager"])
+    errs = [r["noise_vs_cpu_draw"] for r in records if r["noise_vs_cpu_draw"] is not None]
+    check(kicked > 0 and errs, f"no lane of the {kind} kick fleet was kicked in its eager steps")
+    check(max(errs) <= 1e-5, f"{kind} kicked lanes' noise differs from the CPU draw by {max(errs):.3e}")
+    check(records[-1]["converged_fraction"] >= 0.9,
+          f"{kind} kick fleet converged_fraction {records[-1]['converged_fraction']} < 0.9")
+    check(records[-1]["max_violation_converged"] <= 1e-4, f"{kind} kick fleet: converged lanes violate constraints")
+    check({batch, batch // 8} <= batches, f"the {kind} kick fleet launched {kernel} at B = {sorted(batches)}")
+    return kicked, max(errs)
+
+
+def kick_phase(torch, rp, rb):
     """The kick's noise on the card: ``utils/prng.py``'s draw on the card
-    equal to the CPU's bit for bit at ``KICK_DRAW`` for ``KICK_KEYS``, the
-    device events and time of one fleet step's draw at that shape; then the kick fleet (``kick_fleet_run``) read
-    with its own launch counts: lanes kicked, each kicked lane's noise the
-    CPU's draw within 1e-5, converged >= 0.9 at the last step, the
-    structured kernel launched at B=1024 and 128. Returns those launches."""
+    equal to the CPU's bit for bit at ``KICK_DRAW`` for ``KICK_KEYS`` and at
+    the boxer's ``BOXER_KICK_KEY``, the device events and time of one fleet
+    step's draw at ``KICK_DRAW``; then the panda kick fleet and the boxer
+    kick fleet (``kick_fleet_run``), each read with its own launch counts
+    and held by ``hold_kick_fleet``. Returns each fleet's launches."""
     t0 = time.perf_counter()
-    for step, rank in KICK_KEYS:
-        card = [v.cpu() for v in kick_draw(torch, step, rank, "cuda")]
-        host = kick_draw(torch, step, rank, "cpu")
+    for step, rank, shape in [(s, r, KICK_DRAW) for s, r in KICK_KEYS] + [BOXER_KICK_KEY]:
+        card = [v.cpu() for v in kick_draw(torch, step, rank, "cuda", shape)]
+        host = kick_draw(torch, step, rank, "cpu", shape)
         for name, a, b in zip(("key", "bits", "uniform", "normal"), card, host):
             same = torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
                                b.view(torch.int32) if b.dtype == torch.float32 else b)
-            check(same, f"kick draw (step {step}, rank {rank}): the card's {name} differ from the CPU's")
+            check(same, f"kick draw (step {step}, rank {rank}, {shape}): the card's {name} differ from the CPU's")
     print(f"kick draw on the card equals the CPU's bit for bit at {KICK_DRAW} for (step, rank) in "
-          f"{KICK_KEYS}", flush=True)
+          f"{KICK_KEYS} and at the boxer's {BOXER_KICK_KEY[2]} for {BOXER_KICK_KEY[:2]}", flush=True)
     from robot_mpcs_tpu_torch.parallel.fleet import KICK_SEED
     from robot_mpcs_tpu_torch.utils import prng
 
@@ -1018,23 +1119,21 @@ def kick_phase(torch, rp):
     draw_ms = time_ms(draw, torch)
     print(json.dumps({"kick_draw": list(KICK_DRAW), "device_events": total["device_events"],
                       "device_busy_ms": total["device_busy_ms"], "call_ms": draw_ms}), flush=True)
-    rp.riccati_backward_packed.launches = 0
-    with launches_by_batch(KICK_STEPS) as tally:
-        records = kick_fleet_run(torch, "cuda")
-    launches = rp.riccati_backward_packed.launches
-    batches = {B for name, B in tally if name == "riccati_backward_packed"}
-    kicked = sum(r["kicked"] for r in records)
-    errs = [r["noise_vs_cpu_draw"] for r in records if r["noise_vs_cpu_draw"] is not None]
-    check(kicked > 0, "no lane of the kick fleet was kicked")
-    check(max(errs) <= 1e-5, f"kicked lanes' noise differs from the CPU draw by {max(errs):.3e}")
-    check(records[-1]["converged_fraction"] >= 0.9,
-          f"kick fleet converged_fraction {records[-1]['converged_fraction']} < 0.9")
-    check(records[-1]["max_violation_converged"] <= 1e-4, "kick fleet: converged lanes violate constraints")
-    check({KICK_BATCH, KICK_BATCH // 8} <= batches,
-          f"the kick fleet launched the structured kernel at B = {sorted(batches)}")
-    print(json.dumps({"kick_phase": {"kicked": kicked, "noise_vs_cpu_draw": max(errs), "launches": launches,
-                                     "phase_s": time.perf_counter() - t0}}), flush=True)
-    return launches
+    out = {}
+    for kind, wrapper, kernel, steps, eager_from in (
+            ("panda", rp.riccati_backward_packed, "riccati_backward_packed", KICK_STEPS, 0),
+            ("boxer", rb.riccati_backward_batched, "riccati_backward_batched", BOXER_KICK_STEPS,
+             BOXER_KICK_EAGER_FROM)):
+        t1 = time.perf_counter()
+        wrapper.launches = 0
+        with launches_by_batch(steps) as tally:
+            records = kick_fleet_run(torch, "cuda", kind, steps=steps, eager_from=eager_from)
+        out[kind] = wrapper.launches
+        kicked, err = hold_kick_fleet(kind, records, tally, kernel, KICK_BATCH)
+        print(json.dumps({"kick_fleet": kind, "kicked_in_eager_steps": kicked, "noise_vs_cpu_draw": err,
+                          "launches": out[kind], "fleet_s": time.perf_counter() - t1}), flush=True)
+    print(json.dumps({"kick_phase_s": time.perf_counter() - t0}), flush=True)
+    return out
 
 
 def chain_phase(torch, rp):
@@ -1615,8 +1714,82 @@ def distributed_phase(torch, rp, problem, scenario):
         check(torch.equal(getattr(loaded, k), whole), f"W=2 checkpoint loaded at W=1: {k} differs")
     print("W=2 checkpoint loaded at W=1 equals the concatenated shards", flush=True)
     shutil.rmtree(tmp)
+    kicked = kicked_ranks_run(torch)
     return {"nccl world 1": nccl_launches,
-            **{f"rank {r} of 2": ranks[r]["launches"] for r in range(2)}}
+            **{f"rank {r} of 2": ranks[r]["launches"] for r in range(2)},
+            **{f"kicked pointRobot rank {r} of 2 (eager)": kicked[r] for r in range(2)}}
+
+
+def kicked_ranks_run(torch):
+    """The kicked two-rank run of ``tests/torch_distributed_worker.py``
+    (``kick``: the pointRobot fleet at B=32 from its ``KICK_SEED``, 16 lanes
+    a rank, the kick after 2 steps, eagerly) with both ranks on the card
+    (gloo over CUDA tensors): the ranks report identical metrics at every
+    step, lanes of both ranks are kicked, and rank r's kicked lanes carry the
+    CPU's draw for (step, r) within 1e-5, not rank 1 - r's, with no noise on
+    lanes not kicked. Returns each rank's structured-kernel launches."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    worker = os.path.join(root, "tests", "torch_distributed_worker.py")
+    check(os.path.exists(worker), f"{worker} is missing")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_kick_ranks_")
+    port = free_port()
+    procs = [
+        subprocess.Popen(
+            [sys.executable, worker, tmp, "cuda:0", "kick"],
+            env=dict(os.environ, ROBOT_MPCS_COORDINATOR=f"127.0.0.1:{port}", ROBOT_MPCS_NUM_PROCESSES="2",
+                     ROBOT_MPCS_PROCESS_ID=str(r), PYTHONPATH=root),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for r in range(2)
+    ]
+    try:
+        outs = [p.communicate(timeout=DIST_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.splitlines()[-10:]:
+            print(f"[kicked rank {r}] {line}", flush=True)
+        check(p.returncode == 0, f"kicked rank {r} exited with {p.returncode}")
+    ranks = []
+    for r in range(2):
+        with np.load(os.path.join(tmp, f"kick_rank{r}.npz")) as data:
+            ranks.append({k: data[k] for k in data.files})
+    shutil.rmtree(tmp)
+    steps = len([k for k in ranks[0] if k.startswith("kick")])
+    nx = int(ranks[0]["s0_x"].shape[-1])
+    kicked, errs, off = [0, 0], [], []
+    for t in range(steps):
+        metrics = [{k: float(v) for k, v in rank.items() if k.startswith(f"m{t}_")} for rank in ranks]
+        check(metrics[0] == metrics[1] and metrics[0], f"kicked ranks: other metrics at step {t}")
+        check(all(np.isfinite(v) for v in metrics[0].values()), f"kicked ranks: non-finite metrics at step {t}")
+        for r, rank in enumerate(ranks):
+            z_shift, kick = rank[f"shift{t}"], rank[f"kick{t}"]
+            got = rank[f"s{t}_z_warm"][..., nx:] - z_shift[..., nx:]
+            check(bool((got[~kick] == 0).all()), f"kicked rank {r} step {t}: noise on lanes not kicked")
+            if not kick.any():
+                continue
+            want = cpu_kick_noise(t, r, z_shift[..., nx:].shape).numpy()
+            other = cpu_kick_noise(t, 1 - r, z_shift[..., nx:].shape).numpy()
+            errs.append(float(np.abs(got[kick] - want[kick]).max()))
+            off.append(float(np.abs(got[kick] - other[kick]).max()))
+            kicked[r] += int(kick.sum())
+    launches = [int(rank["launches"]) for rank in ranks]
+    print(json.dumps({"kicked_ranks": {"steps": steps, "kicked_per_rank": kicked,
+                                       "noise_vs_own_rank_draw": max(errs, default=None),
+                                       "noise_vs_other_rank_draw_min": min(off, default=None),
+                                       "launches": launches, "phase_s": time.perf_counter() - t0}}), flush=True)
+    check(min(kicked) > 0, f"kicked ranks: lanes kicked per rank {kicked}")
+    check(max(errs) <= 1e-5, f"kicked ranks: noise differs from the CPU draw of its rank by {max(errs):.3e}")
+    check(min(off) > 1e-2, f"kicked ranks: a rank's noise is the other rank's draw ({min(off):.3e})")
+    check(min(launches) > 0, f"kicked ranks: structured kernel launches {launches}")
+    return launches
 
 
 def hold_solves(torch, label, res_a, res_b, min_agree=4, rtol=1e-5, warm=False):
@@ -2529,7 +2702,7 @@ def main() -> int:
     print(f"group path done at {time.perf_counter() - t0:.1f} s", flush=True)
     batched["launches"] = mobile_phase(torch, rb)
     print(f"mobile panda path done at {time.perf_counter() - t0:.1f} s", flush=True)
-    kick = kick_phase(torch, rp)
+    kick = kick_phase(torch, rp, rb)
     print(f"kick path done at {time.perf_counter() - t0:.1f} s", flush=True)
     planner_phase(torch, rp, rb)
     print(f"planner path done at {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2552,11 +2725,12 @@ def main() -> int:
     packed["launches_by_path"] = {"panda fleet": packed["launches"], "group": group_packed,
                                   **graphs,
                                   "graph phase, mixed group": graph_group["riccati_backward_packed"],
-                                  "kick fleet (B=1024, eager)": kick, "6-dof chain (B=64)": chain,
+                                  "kick fleet (B=1024, eager)": kick["panda"], "6-dof chain (B=64)": chain,
                                   **sharded, **reference_form, **examples["riccati_backward_packed"],
                                   **deploy.get("riccati_backward_packed", {}),
                                   **bench["riccati_backward_packed"]}
     batched["launches_by_path"] = {"mobile panda fleet": batched["launches"], "group": group_batched,
+                                   "boxer kick fleet (B=1024)": kick["boxer"],
                                    "graph phase, mixed group": graph_group["riccati_backward_batched"],
                                    **examples["riccati_backward_batched"],
                                    **deploy.get("riccati_backward_batched", {}),

@@ -224,18 +224,23 @@ class FleetRunner:
 
     # ------------------------------------------------------------ pieces
 
+    def _rescue_lanes(self, res: SolveResult, k: int):
+        """The k lanes a rescue tier re-solves, worst first, and the bad-lane
+        mask (fleet.py:335-341): violated lanes first, non-finite lanes
+        before all; a stable descending sort takes ties in index order, as
+        ``lax.top_k`` does."""
+        bad = res.exitflag != 1
+        score = bad.to(torch.float32) * (1.0 + torch.clamp(res.violation, max=1e3))
+        score = torch.where(torch.isfinite(score), score, 2e3)
+        return torch.sort(score, descending=True, stable=True)[1][:k], bad
+
     def _rescue_stragglers(self, x, params, res: SolveResult, solve_fn, k: int):
         """Gather the k worst unconverged lanes into a compact sub-batch,
         re-solve warm with ``solve_fn``'s budget and merge back the lanes
         that were bad (fleet.py:326-402, one group). Returns the merged
         result, the overflow count and the bad count."""
         nx = self.dims.nx
-        bad = res.exitflag != 1
-        # worst-first: violated lanes first, non-finite lanes before all
-        score = bad.to(torch.float32) * (1.0 + torch.clamp(res.violation, max=1e3))
-        score = torch.where(torch.isfinite(score), score, 2e3)
-        # a stable descending sort takes ties in index order, as lax.top_k does
-        idx = torch.sort(score, descending=True, stable=True)[1][:k]
+        idx, bad = self._rescue_lanes(res, k)
         n_bad = torch.sum(bad.to(torch.int32))
         overflow = torch.clamp(n_bad - k, min=0)
         x_g, z_g, lam_g = x[idx], res.z[idx], res.lam[idx]

@@ -4,7 +4,9 @@ and the JAX package.
 Two OS processes (``tests/torch_distributed_worker.py``, torch only) join a
 gloo group on the CPU through the ``ROBOT_MPCS_*`` variables and step the
 pointRobot fleet at B=32 (16 lanes per rank, a rescue tier of 8 slots per
-shard, no kick) for 3 steps. Tolerances, and why:
+shard, no kick) for 3 steps; in the same processes, after that run, they
+step another pointRobot fleet at B=32 with the kick live (``kick_after=2``,
+``kick_scale=1.0``) for 5 steps. Tolerances, and why:
 
 * the ranks' metrics: identical, since both hold the result of the same
   two all-reduces;
@@ -15,7 +17,17 @@ shard, no kick) for 3 steps. Tolerances, and why:
   mesh: the per-step bars of ``tests/test_torch_fleet.py`` (converged
   fraction within 2/B, mean goal distance within 2%, converged violation
   <= 1e-4, plant state within 1e-3);
-* checkpoints: exact, since they are copies.
+* checkpoints: exact, since they are copies;
+* the kicked run against the JAX ``FleetRunner`` on a 2-device mesh, whose
+  step folds the kick's key on its ``axis_index``
+  (``robot_mpcs_tpu/parallel/fleet.py:449-459``): the same lanes kicked on
+  each rank (from the same input; in the two runs where the reference
+  determines the lane); rank r's kicked lanes carry
+  ``jax.random.normal(fold_in(fold_in(PRNGKey(0x5EED), t), r), ...)`` within
+  1e-5 (``tests/test_torch_fleet_kick.py``'s bar), and rank 1's noise is
+  not rank 0's draw; metrics within 2/B and 2%; plant states within 1e-3 by
+  ``torch_fleet_parity.hold_states`` (at most 2 lanes a step the reference
+  does not determine).
 """
 
 import os
@@ -57,6 +69,8 @@ torch.set_num_threads(2)
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 import torch_distributed_worker as worker  # noqa: E402
+from torch_bench_window import jax_fleet, kicked  # noqa: E402
+from torch_fleet_parity import determined_lanes, hold_metrics, hold_states, kick_draw  # noqa: E402
 
 B, STEPS, HALF = worker.B, worker.STEPS, worker.B // 2
 STATE = ("x", "z_warm", "lam", "step", "stall", "best_gdist", "no_improve")
@@ -93,7 +107,8 @@ def two_ranks(problem, scenario, tmp_path_factory):
                PYTHONPATH=os.path.dirname(HERE))
     procs = [
         subprocess.Popen(
-            [sys.executable, os.path.join(HERE, "torch_distributed_worker.py"), str(out)],
+            [sys.executable, os.path.join(HERE, "torch_distributed_worker.py"), str(out), "cpu",
+             "plain,kick"],
             env=dict(env, ROBOT_MPCS_PROCESS_ID=str(r)),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
@@ -201,6 +216,102 @@ def test_port_checkpoint_loads_in_jax(two_ranks):
         want = _whole(ranks, f"s{STEPS - 1}_{k}")
         assert got.dtype == want.dtype, k
         np.testing.assert_array_equal(got, want, err_msg=k)
+
+
+@pytest.fixture(scope="module")
+def kicked_ranks(two_ranks):
+    """The kicked run of the two ranks: per rank its record."""
+    out = two_ranks[0]
+    ranks = []
+    for r in range(2):
+        with np.load(out / f"kick_rank{r}.npz") as data:
+            ranks.append({k: data[k] for k in data.files})
+    return ranks
+
+
+@pytest.fixture(scope="module")
+def jax_kicked(kicked_ranks):
+    """The JAX fleet on a 2-device mesh with the kick: its states and metrics
+    per step, and its step from each of the port's (whole-batch) states."""
+    jp = JaxProblem(JaxSetup.from_dict(point_robot_setup()))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        scen = jax_scenario(jp, B, seed=worker.KICK_SEED, **worker.SAMPLER)
+    state, step = jax_fleet(jp, B, scen, n_devices=2, **worker.KICK_KW)
+    states, metrics = [state], []
+    for _ in range(worker.KICK_STEPS):
+        state, m = step(worker.KICK_KW, state)
+        states.append(state)
+        metrics.append(m)
+    port = [states[0]] + [{k: _whole(kicked_ranks, f"s{i}_{k}") for k in STATE}
+                          for i in range(worker.KICK_STEPS)]
+    return dict(states=states, metrics=metrics, port=port,
+                from_port=[step(worker.KICK_KW, s)[0] for s in port[:-1]])
+
+
+def test_kicked_ranks_report_identical_metrics(kicked_ranks):
+    for i in range(worker.KICK_STEPS):
+        m0, m1 = _metrics(kicked_ranks[0], i), _metrics(kicked_ranks[1], i)
+        assert m0 == m1 and len(m0) == 11, (i, m0, m1)
+        assert all(np.isfinite(v) for v in m0.values())
+
+
+def test_kicked_shards_kick_the_jax_lanes(kicked_ranks, jax_kicked):
+    per_rank = [0, 0]
+    for t in range(worker.KICK_STEPS):
+        prev, new = jax_kicked["port"][t], jax_kicked["port"][t + 1]
+        kt = kicked(prev, new, worker.KICK_KW["kick_after"])
+        flags = _whole(kicked_ranks, f"kick{t}")
+        np.testing.assert_array_equal(kt, flags)  # the port's own flags are what its states show
+        ks = kicked(prev, jax_kicked["from_port"][t], worker.KICK_KW["kick_after"])
+        kj = kicked(jax_kicked["states"][t], jax_kicked["states"][t + 1], worker.KICK_KW["kick_after"])
+        same = determined_lanes(prev, jax_kicked["states"][t], jax_kicked["states"][t + 1],
+                                jax_kicked["from_port"][t])
+        print(f"step {t}: kicked on rank 0 {np.flatnonzero(kt[:HALF]).tolist()}, rank 1 "
+              f"{np.flatnonzero(kt[HALF:]).tolist()} (local lanes); the JAX run "
+              f"{np.flatnonzero(kj).tolist()}, JAX from the port's state {np.flatnonzero(ks).tolist()}")
+        np.testing.assert_array_equal(ks, kt)
+        np.testing.assert_array_equal(kj[same], kt[same])
+        per_rank[0] += int(kt[:HALF].sum())
+        per_rank[1] += int(kt[HALF:].sum())
+    assert min(per_rank) >= 1, per_rank
+
+
+def test_kicked_shards_draw_on_their_rank(problem, kicked_ranks, jax_kicked):
+    nx = problem.dims.nx
+    checked = [0, 0]
+    for t in range(worker.KICK_STEPS):
+        for r, rank in enumerate(kicked_ranks):
+            z_shift, kick = rank[f"shift{t}"], rank[f"kick{t}"]
+            if not kick.any():
+                continue
+            want = kick_draw(t, r, z_shift[..., nx:].shape)
+            got = rank[f"s{t}_z_warm"][..., nx:] - z_shift[..., nx:]
+            err = float(np.abs(got[kick] - want[kick]).max())
+            assert np.array_equal(got[~kick], np.zeros_like(got[~kick]))  # no noise elsewhere
+            # the JAX fleet's stages N-2 and N-1 both shift its last solved
+            # stage: their difference is the draws' difference, on its rank's lanes
+            rows = slice(r * HALF, (r + 1) * HALF)
+            z = jax_kicked["from_port"][t]["z_warm"][rows, :, nx:]
+            err_jax = float(np.abs((z[:, -1] - z[:, -2])[kick] - (want[:, -1] - want[:, -2])[kick]).max())
+            other = kick_draw(t, 1 - r, z_shift[..., nx:].shape)
+            off = float(np.abs(got[kick] - other[kick]).max())
+            print(f"step {t} rank {r}: {int(kick.sum())} kicked lanes; noise vs the draw folded on {r} "
+                  f"{err:.3e} (JAX fleet's stage difference {err_jax:.3e}), vs the draw folded on "
+                  f"{1 - r} {off:.3e}")
+            assert max(err, err_jax) <= 1e-5, (t, r, err, err_jax)
+            assert off > 1e-2, (t, r, off)  # rank r's noise is its own
+            checked[r] += int(kick.sum())
+    assert min(checked) >= 1, checked
+
+
+def test_kicked_shards_match_the_jax_fleet_on_two_devices(kicked_ranks, jax_kicked):
+    for t in range(worker.KICK_STEPS):
+        hold_metrics(t, _metrics(kicked_ranks[0], t), jax_kicked["metrics"][t], B)
+        _, line = hold_states(t, jax_kicked["port"][t], jax_kicked["port"][t + 1], jax_kicked["states"][t],
+                              jax_kicked["states"][t + 1], jax_kicked["from_port"][t])
+        print(line)
+    assert int(jax_kicked["port"][-1]["step"]) == worker.KICK_STEPS
 
 
 def test_initialize_without_variables_is_single_process(monkeypatch):

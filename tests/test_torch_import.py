@@ -2,14 +2,16 @@
 
 The machines that run the port on a GPU carry neither JAX nor PyYAML, so
 every port module (and ``chip_smoke``, whose work is guarded by
-``__main__``) must import without them, and ``panda_setup()`` must build the
-panda problem without the YAML file.
+``__main__``, and ``tests/torch_distributed_worker.py``, which ``chip_smoke``
+runs on the card) must import without them, and ``panda_setup()`` must build
+the panda problem without the YAML file.
 """
 
 import os
 import subprocess
 import sys
 
+import pytest
 import torch
 
 torch.set_num_threads(2)
@@ -25,6 +27,8 @@ names = [m.name for m in pkgutil.walk_packages(robot_mpcs_tpu_torch.__path__, "r
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+sys.path.insert(0, "tests")
+import torch_distributed_worker
 from robot_mpcs_tpu_torch.config import Setup, panda_setup
 from robot_mpcs_tpu_torch.models.problem import MpcProblem
 problem = MpcProblem(Setup.from_dict(panda_setup()))
@@ -74,3 +78,15 @@ def test_port_source_never_imports_jax():
                         s = line.strip()
                         assert not s.startswith(("import jax", "from jax")), (f, s)
                         assert "robot_mpcs_tpu." not in s or not s.startswith(("import", "from")), (f, s)
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py", "tests/torch_distributed_worker.py"])
+def test_card_scripts_never_import_jax(script):
+    """The scripts run on the card import neither JAX nor the JAX package,
+    at the top or inside a function."""
+    with open(os.path.join(ROOT, script)) as fh:
+        for line in fh:
+            s = line.strip()
+            assert not s.startswith(("import jax", "from jax")), (script, s)
+            assert not s.startswith(("import robot_mpcs_tpu ", "import robot_mpcs_tpu.",
+                                     "from robot_mpcs_tpu ", "from robot_mpcs_tpu.")), (script, s)

@@ -56,13 +56,13 @@ def _numpy_state(state):
     return {k: np.array(v) for k, v in state._asdict().items()}
 
 
-def jax_fleet(problem, batch, scenario, **runner_kw):
-    """A JAX ``FleetRunner`` on one CPU device with ``scenario``; returns its
-    initial state (numpy) and ``step(runner_kw, state) -> (state, metrics)``
-    on numpy states (the step donates its input). The step counter is
-    replicated as the step returns it, so the step compiles once per
-    ``runner_kw``."""
-    mesh = jax_make_mesh(devices=jax.devices()[:1])
+def jax_fleet(problem, batch, scenario, n_devices=1, **runner_kw):
+    """A JAX ``FleetRunner`` on ``n_devices`` CPU devices with ``scenario``;
+    returns its initial state (numpy) and ``step(runner_kw, state) ->
+    (state, metrics)`` on numpy states of the whole batch (the step donates
+    its input). The step counter is replicated as the step returns it, so
+    the step compiles once per ``runner_kw``."""
+    mesh = jax_make_mesh(devices=jax.devices()[:n_devices])
     runners = {}
 
     def runner(kw):
