@@ -58,13 +58,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
    graphed step without the profiler.
 5. group path: ``FleetGroup`` of pointRobot 1024, panda 2048 and boxer 1024
    lanes (``mixed_fleet_scenarios(seed=0)`` with bench.py's per-class
-   samplers and weights) for 4 closed-loop steps (launches per step printed
-   by kernel and batch size). Both kernels' launch counts must grow (the
-   structured one from panda and pointRobot, the general one from boxer),
-   every per-class metric must be finite and each class's last-step
-   converged fraction >= 0.9. Prints each class's
-   synchronized wall time per step and one profiled call of the solver's
-   diff-drive Jacobians (forward-mode autodiff, ``dynamics_jacobians``).
+   samplers and weights) at the default runner for 8 closed-loop steps
+   (launches per step printed by kernel and batch size). Both kernels'
+   launch counts must grow (the structured one from panda and pointRobot,
+   the general one from boxer), every per-class metric must be finite and
+   each class's last-step converged fraction >= 0.9. Each step is printed
+   per class and over the group beside the JAX package's ``FleetGroup`` on a
+   CPU (``GROUP_JAX_CPU``, from ``tests/torch_group_window.py``), whose
+   means over steps 2-7 the card's must meet within ``WINDOW_BARS`` per
+   class and overall. Prints each class's synchronized wall time per step
+   and one profiled call of the solver's diff-drive Jacobians (forward-mode
+   autodiff, ``dynamics_jacobians``).
+5d. pointRobot path: bench.py's pointRobot extra (the port's
+   ``bench._scenario_for``, ``FleetRunner`` defaults: the 1/8 rescue tier,
+   the kick after 25 steps) at B=1024 for the bench's window, 38 graphed
+   steps with their own launch counts, each printed beside the JAX package's
+   on a CPU (``POINT_JAX_CPU``, from ``tests/torch_bench_window.py --robot
+   pointRobot --jax-riccati pallas``): the means over steps 8-37 within
+   ``WINDOW_BARS``, each step's kicked lanes within 3 of the JAX package's,
+   every metric finite, converged lanes feasible to 1e-4 at every step, the
+   structured kernel launched at B=1024 and 128.
 5b. mobile panda path: the panda arm on a diff-drive base
    (``mobile_panda_setup``: nx = 22, nu = 9) as a fleet of 1024 lanes from
    seed 0 (``MOBILE_SAMPLER``, rescue tier at 1/8, no kick) for 6 steps,
@@ -74,7 +87,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ms, converged fraction, goal distance, mean iterations and overflow
    beside the JAX package's on a CPU (``MOBILE_JAX_CPU``, from
    ``tests/torch_mobile_window.py``), whose means over steps 2-5 the card's
-   must meet within ``MOBILE_BARS`` (0.005 converged, 1% iterations, 0.5%
+   must meet within ``WINDOW_BARS`` (0.005 converged, 1% iterations, 0.5%
    goal distance); then launches by batch size, its ``program_record``, and
    64 lanes of the last state solved on the card and on the CPU at phase
    9's bars.
@@ -209,8 +222,10 @@ import numpy as np
 
 BATCH = 4096
 STEPS = 6
-GROUP_STEPS = 4
+GROUP_STEPS = 8
 GROUP_SIZES = {"pointRobot": 1024, "panda": 2048, "boxer": 1024}
+#: the steps of the group whose means are held (steps 0 and 1 start cold)
+GROUP_WINDOW = (2, 8)
 #: the mobile panda's fleet (``mobile_panda_setup``): B lanes from seed 0,
 #: the default rescue tier (1/8 width), no kick, bench.py's boxer-like
 #: sampler (goals around the base, obstacles out of the way)
@@ -238,7 +253,95 @@ MOBILE_JAX_CPU = {
 #: the same lanes at every step, so the card's order is held to the bars the
 #: port on the CPU is held to
 MOBILE_WINDOW = (2, 6)
-MOBILE_BARS = {"converged_fraction": 0.005, "mean_iterations": 0.01, "mean_goal_distance": 0.005}
+#: (the bars of every window ``hold_window`` holds, not only the mobile panda's)
+WINDOW_BARS = {"converged_fraction": 0.005, "mean_iterations": 0.01, "mean_goal_distance": 0.005}
+#: the bench's pointRobot extra (``robot_mpcs_tpu_torch/bench.py``): the
+#: class's scenario at POINT_BATCH lanes with the bench's runner (the
+#: defaults: the 1/8 rescue tier, the kick after 25 steps without
+#: improvement), for the bench's window: up to 8 warm-up steps, then 30
+#: timed; the means over POINT_WINDOW are held at WINDOW_BARS, and each
+#: step's kicked lanes within POINT_KICKED_BAR of the JAX package's count
+POINT_BATCH = 1024
+POINT_STEPS = 38
+POINT_WINDOW = (8, 38)
+POINT_KICKED_BAR = 3
+#: the JAX package's pointRobot fleet of ``point_phase`` (the JAX draw of the
+#: bench's scenario, the same runner) on a CPU, per step 0-37, its solver on
+#: the Pallas kernel its fleet runs on its accelerator (interpret mode): printed
+#: by ``tests/torch_bench_window.py --robot pointRobot --jax-riccati pallas``
+#: at B=1024 (JAX 0.9.0); the port on the CPU agrees with it over steps 8-37
+#: at the bars above
+POINT_JAX_CPU = {
+    "converged_fraction": (1.0,) * 38,
+    "mean_iterations": (5.4833984375, 3.7314453125, 3.580078125, 3.3134765625, 3.103515625, 2.90234375,
+                        2.607421875, 2.439453125, 2.5927734375, 2.5947265625, 2.6259765625, 2.6337890625,
+                        2.6630859375, 2.6435546875, 2.634765625, 2.6455078125, 2.65625, 2.6220703125,
+                        2.6064453125, 2.6328125, 2.62109375, 2.595703125, 2.5966796875, 2.568359375,
+                        2.5517578125, 2.564453125, 2.552734375, 2.5556640625, 2.541015625, 2.5322265625,
+                        2.5107421875, 2.51171875, 2.5224609375, 2.50390625, 2.494140625, 2.505859375,
+                        2.5107421875, 2.4697265625),
+    "mean_goal_distance": (1.6849247217178345, 1.6682515144348145, 1.6416419744491577, 1.606092095375061,
+                           1.5625823736190796, 1.512068510055542, 1.4554803371429443, 1.393713116645813,
+                           1.3276267051696777, 1.258042335510254, 1.185739278793335, 1.1114537715911865,
+                           1.0358771085739136, 0.9596551060676575, 0.8833885192871094, 0.8076331615447998,
+                           0.7329022884368896, 0.65966796875, 0.5883637070655823, 0.5193890333175659,
+                           0.45311328768730164, 0.3898846209049225, 0.33004555106163025, 0.27396926283836365,
+                           0.22211696207523346, 0.17508386075496674, 0.1340414583683014, 0.10204172134399414,
+                           0.09666943550109863, 0.11947853863239288, 0.14418242871761322, 0.16808642446994781,
+                           0.1903112530708313, 0.21045762300491333, 0.22832946479320526, 0.24384300410747528,
+                           0.25698423385620117, 0.2677866220474243),
+    "rescue_overflow_fraction": (0.0,) * 38,
+    # one lane kicked at steps 25 and 37
+    "kicked": (0,) * 25 + (1,) + (0,) * 11 + (1,),
+}
+#: the JAX package's ``FleetGroup`` of ``group_phase`` (GROUP_SIZES, the JAX
+#: draw of ``mixed_fleet_scenarios(seed=0)``, the default runner) on a CPU,
+#: per class and over the group, per step 0-7, its solvers on the Pallas
+#: kernels (interpret mode): printed by ``tests/torch_group_window.py`` (JAX
+#: 0.9.0); the means over GROUP_WINDOW are held at WINDOW_BARS. The Pallas
+#: path, not the CPU's stage scan, because the port's CUDA kernels are its
+#: kernels' ports and the reference's own two paths differ by 0.90% in the
+#: panda's mean iterations over steps 2-7 (8.1602 with the scan), near the 1% bar
+GROUP_JAX_CPU = {
+    "pointRobot": {
+        "converged_fraction": (1.0,) * 8,
+        "mean_iterations": (5.4833984375, 3.7314453125, 3.580078125, 3.3134765625,
+                            3.103515625, 2.90234375, 2.607421875, 2.439453125),
+        "mean_goal_distance": (1.6849247217178345, 1.6682515144348145, 1.6416419744491577, 1.606092095375061,
+                               1.5625823736190796, 1.512068510055542, 1.4554803371429443, 1.393713116645813),
+        "rescue_overflow_fraction": (0.0,) * 8,
+    },
+    "panda": {
+        "converged_fraction": (0.87158203125, 0.99609375, 0.9990234375, 0.998046875,
+                               0.99951171875, 0.9970703125, 0.99560546875, 0.99267578125),
+        "mean_iterations": (12.78515625, 9.40234375, 8.8271484375, 8.431640625,
+                            8.0458984375, 7.9326171875, 7.95361328125, 8.208984375),
+        "mean_goal_distance": (0.6279032230377197, 0.6228806972503662, 0.6149303317070007, 0.6043643951416016,
+                               0.5914586782455444, 0.57646644115448, 0.5596300959587097, 0.54119473695755),
+        "rescue_overflow_fraction": (0.5009746551513672, 0.0, 0.0, 0.0,
+                                     0.0, 0.0, 0.0, 0.0),
+    },
+    "boxer": {
+        "converged_fraction": (0.439453125, 0.7529296875, 0.9892578125, 0.9990234375,
+                               1.0, 1.0, 1.0, 1.0),
+        "mean_iterations": (16.791015625, 13.076171875, 10.3212890625, 7.49609375,
+                            7.1318359375, 7.2529296875, 7.4521484375, 7.576171875),
+        "mean_goal_distance": (1.679547667503357, 1.5891116857528687, 1.4522720575332642, 1.280713677406311,
+                               1.0875405073165894, 0.8865941762924194, 0.6911067962646484, 0.5121190547943115),
+        "rescue_overflow_fraction": (0.8142235279083252, 0.6512261629104614, 0.0, 0.0,
+                                     0.0, 0.0, 0.0, 0.0),
+    },
+    "overall": {
+        "converged_fraction": (0.795654296875, 0.936279296875, 0.996826171875, 0.998779296875,
+                               0.999755859375, 0.99853515625, 0.997802734375, 0.996337890625),
+        "mean_iterations": (11.961181640625, 8.903076171875, 7.888916015625, 6.918212890625,
+                            6.581787109375, 6.505126953125, 6.49169921875, 6.6083984375),
+        "mean_goal_distance": (1.1550697088241577, 1.1257811784744263, 1.0809437036514282, 1.023883581161499,
+                               0.9582600593566895, 0.8878989219665527, 0.8164618015289307, 0.7470554113388062),
+        "rescue_overflow_fraction": (0.4540432095527649, 0.16280654072761536, 0.0, 0.0,
+                                     0.0, 0.0, 0.0, 0.0),
+    },
+}
 #: the kick fleet: the bench's panda scenario at B lanes with the default
 #: rescue tier and the kick after KICK_AFTER steps without improvement, so
 #: that lanes are kicked within its steps; the card's draw is held to the
@@ -865,16 +968,19 @@ def group_phase(torch, rp, rb):
     rp.riccati_backward_packed.launches = 0
     rb.riccati_backward_batched.launches = 0
     metrics = None
+    records = {k: [] for k in (*group.runners, "overall")}
     with launches_by_batch(GROUP_STEPS):
         for i in range(GROUP_STEPS):
             states, metrics = group.step(states, scen)
-            per = {k: {f: float(v) for f, v in m._asdict().items()} for k, m in metrics.per_class.items()}
+            per = {k: {f: float(v) for f, v in m._asdict().items()}
+                   for k, m in (*metrics.per_class.items(), ("overall", metrics.overall))}
+            for k, m in per.items():
+                records[k].append(m)
             print(json.dumps({
                 "group_step": i,
                 **{f"{k}_step_ms": class_s[k][-1] * 1e3 for k in group.runners},
-                **{f"{k}_converged": per[k]["converged_fraction"] for k in per},
-                **{f"{k}_mean_goal_distance": per[k]["mean_goal_distance"] for k in per},
-                "overall_converged": float(metrics.overall.converged_fraction),
+                **{k: {f: m[f] for f in WINDOW_BARS} for k, m in per.items()},
+                "jax_cpu": {k: {f: v[i] for f, v in ref.items()} for k, ref in GROUP_JAX_CPU.items()},
             }), flush=True)
             for k, m in per.items():
                 check(all(np.isfinite(v) for v in m.values()),
@@ -888,6 +994,8 @@ def group_phase(torch, rp, rb):
     for k, m in metrics.per_class.items():
         cf = float(m.converged_fraction)
         check(cf >= 0.9, f"{k}: last-step converged_fraction {cf} < 0.9")
+    for k, recs in records.items():
+        hold_window(f"group {k}", recs, GROUP_JAX_CPU[k], GROUP_WINDOW)
     last = {k: {f: float(v) for f, v in m._asdict().items()} for k, m in metrics.per_class.items()}
     print(json.dumps({
         "group": GROUP_SIZES, "steps": GROUP_STEPS,
@@ -947,7 +1055,7 @@ def mobile_phase(torch, rb):
             check(all(np.isfinite(v) for v in m.values()), f"non-finite mobile panda metrics at step {i}: {m}")
     launches = rb.riccati_backward_batched.launches
     batches = {B for name, B in tally if name == "riccati_backward_batched"}
-    hold_mobile_window(records)
+    hold_window("mobile panda", records, MOBILE_JAX_CPU, MOBILE_WINDOW)
     check(launches > 0, "the mobile panda fleet never launched the general kernel")
     check({MOBILE_BATCH, MOBILE_BATCH // 8} <= batches,
           f"the mobile panda fleet launched the general kernel at B = {sorted(batches)}")
@@ -970,20 +1078,78 @@ def mobile_phase(torch, rb):
     return launches
 
 
-def hold_mobile_window(records):
-    """The card's mobile-panda fleet (``records``: per step its metrics)
-    against the JAX package's on a CPU (``MOBILE_JAX_CPU``): the means over
-    ``MOBILE_WINDOW`` within ``MOBILE_BARS``."""
-    lo, hi = MOBILE_WINDOW
+def hold_window(label, records, reference, window):
+    """A card fleet's per-step metrics (``records``) against the JAX
+    package's on a CPU (``reference``: per field, per step): the means over
+    the steps of ``window`` within ``WINDOW_BARS``, absolute for the
+    converged fraction and relative otherwise."""
+    lo, hi = window
     out = {}
-    for k, bar in MOBILE_BARS.items():
-        card, ref = float(np.mean([r[k] for r in records[lo:hi]])), float(np.mean(MOBILE_JAX_CPU[k][lo:hi]))
+    for k, bar in WINDOW_BARS.items():
+        card, ref = float(np.mean([r[k] for r in records[lo:hi]])), float(np.mean(reference[k][lo:hi]))
         limit = bar if k == "converged_fraction" else bar * ref
         out[k] = {"card": card, "jax_cpu": ref, "gap": abs(card - ref), "limit": limit}
-    print(json.dumps({"mobile_window_vs_jax_cpu": out, "steps": list(MOBILE_WINDOW)}), flush=True)
+    print(json.dumps({"window_vs_jax_cpu": out, "fleet": label, "steps": list(window)}), flush=True)
     for k, v in out.items():
-        check(v["gap"] <= v["limit"], f"mobile panda: the mean {k} over steps {lo}-{hi - 1} is {v['card']}, "
+        check(v["gap"] <= v["limit"], f"{label}: the mean {k} over steps {lo}-{hi - 1} is {v['card']}, "
                                       f"the JAX package's on a CPU {v['jax_cpu']} (limit {v['limit']})")
+
+
+def point_phase(torch, rp):
+    """The bench's pointRobot extra on the card: the port's
+    ``bench._scenario_for`` at ``POINT_BATCH`` lanes with the bench's runner
+    (``FleetRunner`` defaults), ``POINT_STEPS`` graphed steps read with their
+    own launch counts. Each step is printed beside ``POINT_JAX_CPU``; the
+    means over ``POINT_WINDOW`` are held (``hold_window``), each step's
+    kicked lanes within ``POINT_KICKED_BAR`` of the JAX package's, every
+    metric finite and converged lanes feasible to 1e-4 at every step, and
+    the structured kernel launched at B and at its rescue tier's B/8.
+    Returns the kernel's launches in these steps."""
+    from robot_mpcs_tpu_torch import bench as tbench
+    from robot_mpcs_tpu_torch.parallel.fleet import FleetRunner
+
+    t0 = time.perf_counter()
+    problem, _ = tbench._load_problem("pointRobot")
+    runner = FleetRunner(problem, POINT_BATCH, device="cuda")
+    scen = runner.to_device(tbench._scenario_for(problem, POINT_BATCH, "pointRobot"))
+    state = runner.init_state(scen)
+    torch.cuda.synchronize()
+    print(f"pointRobot set-up: {time.perf_counter() - t0:.1f} s", flush=True)
+    rp.riccati_backward_packed.launches = 0
+    step_ms, records = [], []
+    t0 = time.perf_counter()
+    with launches_by_batch(POINT_STEPS) as tally:
+        for i in range(POINT_STEPS):
+            prev = state
+            t = time.perf_counter()
+            state, metrics = runner.step(state, scen)
+            m = {k: float(v) for k, v in metrics._asdict().items()}  # synchronizes
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            m["kicked"] = int(kicked_lanes(prev, state, runner._kick_after).sum())
+            records.append(m)
+            print(json.dumps({"point_step": i, "step_ms": step_ms[-1], **{k: m[k] for k in (
+                "converged_fraction", "mean_goal_distance", "mean_iterations", "max_violation_converged",
+                "rescue_overflow_fraction", "kicked")}, "jax_cpu": {k: v[i] for k, v in POINT_JAX_CPU.items()}}),
+                flush=True)
+            check(all(np.isfinite(v) for v in m.values()), f"non-finite pointRobot metrics at step {i}: {m}")
+            check(m["max_violation_converged"] <= 1e-4, f"pointRobot step {i}: converged lanes violate constraints")
+            check(abs(m["kicked"] - POINT_JAX_CPU["kicked"][i]) <= POINT_KICKED_BAR,
+                  f"pointRobot step {i}: {m['kicked']} lanes kicked, the JAX package's on a CPU "
+                  f"{POINT_JAX_CPU['kicked'][i]}")
+    launches = rp.riccati_backward_packed.launches
+    batches = {B for name, B in tally if name == "riccati_backward_packed"}
+    hold_window(f"pointRobot fleet (B={POINT_BATCH})", records, POINT_JAX_CPU, POINT_WINDOW)
+    check(launches > 0, "the pointRobot fleet never launched the structured kernel")
+    check({POINT_BATCH, POINT_BATCH // 8} <= batches,
+          f"the pointRobot fleet launched the structured kernel at B = {sorted(batches)}")
+    check(bool(torch.isfinite(state.x).all() and torch.isfinite(state.z_warm).all()),
+          "non-finite pointRobot fleet state")
+    print(json.dumps({
+        "fleet": "pointRobot", "batch": POINT_BATCH, "steps": POINT_STEPS, "kernel_launches": launches,
+        "kicked": sum(r["kicked"] for r in records), "steady_step_ms": float(np.median(step_ms[1:])),
+        "window_step_ms": float(np.mean(step_ms[POINT_WINDOW[0]:])), "point_phase_s": time.perf_counter() - t0,
+    }), flush=True)
+    return launches
 
 
 def kick_draw(torch, step, rank, device, shape=KICK_DRAW):
@@ -1006,12 +1172,12 @@ def cpu_kick_noise(step, rank, shape):
     return prng.normal(prng.fold_in(prng.fold_in(prng.prng_key(KICK_SEED), step), rank), tuple(shape))
 
 
-def kicked_lanes(prev, new):
+def kicked_lanes(prev, new, kick_after=KICK_AFTER):
     """Lanes kicked by the step from fleet state ``prev`` to ``new``: its
-    ``no_improve`` reached ``KICK_AFTER`` and fell to 0 without an
+    ``no_improve`` reached ``kick_after`` and fell to 0 without an
     improvement of the best goal distance (fleet.py:309-319)."""
     improved = new.best_gdist < prev.best_gdist - 5e-3
-    return (prev.no_improve + 1 >= KICK_AFTER) & (new.no_improve == 0) & ~improved
+    return (prev.no_improve + 1 >= kick_after) & (new.no_improve == 0) & ~improved
 
 
 def kick_fleet_run(torch, device, kind="panda", batch=KICK_BATCH, steps=KICK_STEPS, eager_from=0):
@@ -2700,6 +2866,8 @@ def main() -> int:
     print(f"graph phase done at {time.perf_counter() - t0:.1f} s", flush=True)
     boxer, boxer_scenario, group_packed, group_batched = group_phase(torch, rp, rb)
     print(f"group path done at {time.perf_counter() - t0:.1f} s", flush=True)
+    point = point_phase(torch, rp)
+    print(f"pointRobot path done at {time.perf_counter() - t0:.1f} s", flush=True)
     batched["launches"] = mobile_phase(torch, rb)
     print(f"mobile panda path done at {time.perf_counter() - t0:.1f} s", flush=True)
     kick = kick_phase(torch, rp, rb)
@@ -2723,6 +2891,7 @@ def main() -> int:
 
     # launches is the main path's count; each path's own beside it
     packed["launches_by_path"] = {"panda fleet": packed["launches"], "group": group_packed,
+                                  f"pointRobot fleet (B={POINT_BATCH})": point,
                                   **graphs,
                                   "graph phase, mixed group": graph_group["riccati_backward_packed"],
                                   "kick fleet (B=1024, eager)": kick["panda"], "6-dof chain (B=64)": chain,

@@ -43,8 +43,8 @@ import bench
 from robot_mpcs_tpu_torch import bench as tbench
 from robot_mpcs_tpu_torch import interop
 from robot_mpcs_tpu_torch.parallel.fleet import FleetRunner
-from torch_bench_window import PLATEAU, jax_fleet, kicked, record_shifts
-from torch_fleet_parity import determined_lanes, hold_metrics, hold_states, kick_draw
+from torch_bench_window import jax_fleet, record_shifts
+from torch_fleet_parity import hold_kicked, hold_metrics, hold_states, kick_noise_errors
 
 torch.set_num_threads(2)
 
@@ -52,13 +52,6 @@ B = 64
 STEPS = 18
 KICK_AFTER = 2
 RUNNER_KW = dict(kick_after=KICK_AFTER)  # the default tier and kick_scale
-
-
-def _kicked(prev, new):
-    """Lanes kicked by the step from ``prev`` to ``new`` (numpy state dicts),
-    and each lane's improvement over the plateau threshold."""
-    margin = (prev["best_gdist"] - PLATEAU) - new["best_gdist"]
-    return kicked(prev, new, KICK_AFTER), margin
 
 
 @pytest.fixture(scope="module")
@@ -96,19 +89,10 @@ def test_same_lanes_kicked(runs):
     assert runs["slots"] == B // 8
     times = np.zeros(B, int)
     for t in range(STEPS):
-        p0, p1 = runs["port_states"][t], runs["port_states"][t + 1]
-        kj, mj = _kicked(runs["jax_states"][t], runs["jax_states"][t + 1])
-        kt, mt = _kicked(p0, p1)
-        ks, ms = _kicked(p0, runs["jax_from_port"][t])
-        margins = np.concatenate([mj, mt, ms])
-        edge = float(np.min(np.abs(margins[np.isfinite(margins)]), initial=np.inf))
-        same = determined_lanes(p0, runs["jax_states"][t], runs["jax_states"][t + 1], runs["jax_from_port"][t])
-        print(f"step {t}: kicked JAX {np.flatnonzero(kj).tolist()}, port {np.flatnonzero(kt).tolist()}; "
-              f"closest improvement to the 5e-3 threshold {edge:.3e}")
-        # the port's own kick flags are what its states show
-        np.testing.assert_array_equal(kt, runs["shifts"][t][1])
-        np.testing.assert_array_equal(ks, kt)
-        np.testing.assert_array_equal(kj[same], kt[same])
+        kt, line = hold_kicked(t, runs["port_states"][t], runs["port_states"][t + 1], runs["jax_states"][t],
+                               runs["jax_states"][t + 1], runs["jax_from_port"][t], runs["shifts"][t][1],
+                               KICK_AFTER)
+        print(line)
         times += kt
     twice = np.flatnonzero(times >= 2)
     print(f"lanes kicked at least twice: {twice.tolist()}")
@@ -117,24 +101,16 @@ def test_same_lanes_kicked(runs):
 
 def test_kick_noise_is_jax_draw(runs):
     nx = runs["dims"].nx
+    assert runs["shifts"][0][0].shape[-1] - nx == runs["dims"].nu + runs["dims"].ns
     checked = 0
     for t in range(STEPS):
-        z_shift, kick = runs["shifts"][t]
-        if not kick.any():
+        errs = kick_noise_errors(t, nx, runs["shifts"][t], runs["port_states"][t + 1], (
+            (runs["jax_states"][t], runs["jax_states"][t + 1]),
+            (runs["port_states"][t], runs["jax_from_port"][t])), KICK_AFTER)
+        if errs is None:
             continue
-        assert z_shift.shape[-1] - nx == runs["dims"].nu + runs["dims"].ns
-        want = kick_draw(t, 0, z_shift[..., nx:].shape)
-        got = runs["port_states"][t + 1]["z_warm"][..., nx:] - z_shift[..., nx:]
-        err = float(np.abs(got[kick] - want[kick]).max())
-        assert np.array_equal(got[~kick], np.zeros_like(got[~kick]))  # no noise elsewhere
-        # the JAX fleet's stages N-2 and N-1 both shift its last solved stage
-        want_diff = want[:, -1] - want[:, -2]
-        errs_jax = []
-        for prev, state in ((runs["jax_states"][t], runs["jax_states"][t + 1]),
-                            (runs["port_states"][t], runs["jax_from_port"][t])):
-            kj = kicked(prev, state, KICK_AFTER)
-            z = state["z_warm"][..., nx:]
-            errs_jax.append(float(np.abs((z[:, -1] - z[:, -2])[kj] - want_diff[kj]).max(initial=0)))
+        err, errs_jax = errs
+        kick = runs["shifts"][t][1]
         print(f"step {t}: {int(kick.sum())} kicked lanes; port noise vs jax.random {err:.3e}; "
               f"JAX fleet's stage difference vs the draws' (its run, from the port's state) "
               f"{errs_jax[0]:.3e}, {errs_jax[1]:.3e}")

@@ -28,19 +28,17 @@ rescue tier takes (``lax.top_k`` over the score of
   results).
 """
 
-import jax
-import jax.numpy as jnp
+import functools
+
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke
-from robot_mpcs_tpu.parallel.fleet import FleetRunner as JaxRunner
-from robot_mpcs_tpu.parallel.mesh import make_mesh
 from robot_mpcs_tpu_torch import interop
 from robot_mpcs_tpu_torch.parallel.fleet import FleetRunner
 from torch_bench_window import jax_fleet
-from torch_fleet_parity import MAX_LOOSE, hold_metrics, hold_states
+from torch_fleet_parity import hold_metrics, hold_rescued, hold_states, jax_phase1, jax_rescue, record_rescue
 from torch_mobile_window import RUNNER_KW, problems, scenario
 
 torch.set_num_threads(2)
@@ -48,18 +46,6 @@ torch.set_num_threads(2)
 B = 64
 STEPS = 6
 SLOTS = B // 8  # the default 1/8 tier
-
-
-def _jax_rescue(solve, state, params, k):
-    """The JAX fleet's phase 1 from ``state`` and the lanes its rescue tier
-    takes: the top-k score of fleet.py:335-341, by ``lax.top_k``."""
-    res = solve(state["x"], params, state["z_warm"], state["lam"])
-    flag, viol = np.asarray(res.exitflag), np.asarray(res.violation)
-    bad = flag != 1
-    score = bad.astype(np.float32) * (1.0 + np.minimum(viol, np.float32(1e3)))
-    score = np.where(np.isfinite(score), score, np.float32(2e3)).astype(np.float32)
-    idx = np.asarray(jax.lax.top_k(jnp.asarray(score), k)[1])
-    return {"flag": flag, "score": score, "rescued": set(idx[bad[idx]].tolist())}
 
 
 @pytest.fixture(scope="module")
@@ -78,16 +64,7 @@ def runs():
         jax_metrics.append(m)
 
     tr = FleetRunner(tp, B, device="cpu", **RUNNER_KW)
-    rescue_lanes, port_rescue = tr._rescue_lanes, []
-
-    def recording_rescue_lanes(res, k):
-        idx, bad = rescue_lanes(res, k)
-        score = bad.to(torch.float32) * (1.0 + torch.clamp(res.violation, max=1e3))
-        port_rescue.append({"flag": res.exitflag.numpy().copy(), "score": score.numpy().copy(),
-                            "rescued": set(idx[bad[idx]].tolist())})
-        return idx, bad
-
-    tr._rescue_lanes = recording_rescue_lanes
+    port_rescue = record_rescue(tr)
     tsc = interop.scenario_from_numpy(np.asarray(scen.xinit), params, device="cpu")
     ts = tr.init_state(tsc)
     port_states, port_metrics = [interop.state_to_numpy(ts)], []
@@ -96,12 +73,11 @@ def runs():
         port_states.append(interop.state_to_numpy(ts))
         port_metrics.append({k: float(v) for k, v in m._asdict().items()})
 
-    jr = JaxRunner(jp, B, mesh=make_mesh(devices=jax.devices()[:1]), **RUNNER_KW)
-    phase1 = jax.jit(jax.vmap(jr._solve))
+    phase1, k = jax_phase1(jp, B, **RUNNER_KW)
     return dict(jax_states=jax_states, jax_metrics=jax_metrics, port_states=port_states,
-                port_metrics=port_metrics, port_rescue=port_rescue, slots=(tr._tiers[0][0], jr._k_loc),
+                port_metrics=port_metrics, port_rescue=port_rescue, slots=(tr._tiers[0][0], k),
                 jax_from_port=[jax_step(RUNNER_KW, s)[0] for s in port_states[:-1]],
-                jax_rescue=[_jax_rescue(phase1, s, params, jr._k_loc) for s in port_states[:-1]])
+                jax_rescue=[jax_rescue(phase1, s, params, k) for s in port_states[:-1]])
 
 
 def test_default_tier_overflows(runs):
@@ -126,15 +102,7 @@ def test_fleet_metrics_match_jax(runs):
 
 def test_rescued_lanes_match_jax(runs):
     for t in range(STEPS):
-        p, j = runs["port_rescue"][t], runs["jax_rescue"][t]
-        flipped = np.flatnonzero(p["flag"] != j["flag"])
-        moved = sorted((p["rescued"] ^ j["rescued"]) - set(flipped.tolist()))
-        print(f"step {t}: rescued by the port {sorted(p['rescued'])}, by JAX {sorted(j['rescued'])}; "
-              f"phase-1 flags differ on {flipped.tolist()} (port {p['flag'][flipped].tolist()}, JAX "
-              f"{j['flag'][flipped].tolist()}); rescued by one only, flags agreeing: {moved} (scores port "
-              f"{p['score'][moved].tolist()}, JAX {j['score'][moved].tolist()})")
-        assert len(p["rescued"]) == len(j["rescued"]) or len(flipped), (t, p["rescued"], j["rescued"])
-        assert len(flipped) <= MAX_LOOSE and len(moved) <= MAX_LOOSE, (t, flipped, moved)
+        print(hold_rescued(t, runs["port_rescue"][t], runs["jax_rescue"][t]))
 
 
 def test_plant_states_match_jax(runs):
@@ -157,16 +125,18 @@ PORT_CPU_B1024 = {
 
 @pytest.mark.parametrize("moved", [None, "converged_fraction", "mean_iterations", "mean_goal_distance"])
 def test_card_window_check(moved):
-    """``chip_smoke.hold_mobile_window``, the card's check of this fleet at
-    B=1024 against the JAX package's CPU numbers, takes the port's CPU
-    numbers and refuses them with one field moved past its bar over steps
-    2-5 (0.006 converged, 1.1% iterations, 0.6% goal distance)."""
+    """``chip_smoke.hold_window``, the card's check of this fleet at B=1024
+    against the JAX package's CPU numbers (``MOBILE_JAX_CPU``), takes the
+    port's CPU numbers and refuses them with one field moved past its bar
+    over steps 2-5 (0.006 converged, 1.1% iterations, 0.6% goal distance)."""
     records = [{k: v[i] for k, v in PORT_CPU_B1024.items()} for i in range(STEPS)]
+    check = functools.partial(chip_smoke.hold_window, "mobile panda", reference=chip_smoke.MOBILE_JAX_CPU,
+                              window=chip_smoke.MOBILE_WINDOW)
     if moved is None:
-        chip_smoke.hold_mobile_window(records)
+        check(records)
         return
     for r in records[2:]:
         r[moved] = r[moved] + 0.006 if moved == "converged_fraction" else r[moved] * (
             1.011 if moved == "mean_iterations" else 1.006)
     with pytest.raises(chip_smoke.SmokeFailure, match=moved):
-        chip_smoke.hold_mobile_window(records)
+        check(records)

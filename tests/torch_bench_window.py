@@ -1,11 +1,12 @@
 """The benchmark's window at the benchmark's width, both packages on the CPU:
-the panda fleet with ``bench.py``'s runner defaults (the 1/8 rescue tier,
-the kick), stepped lane for lane.
+a fleet of the bench (the panda by default, or the bench's pointRobot extra)
+with ``bench.py``'s runner defaults (the 1/8 rescue tier, the kick), stepped
+lane for lane.
 
-    PYTHONPATH=. python tests/torch_bench_window.py [--batch 1024] [--steps 38] [--threads 4]
-                                                    [--kick-after 25]
+    PYTHONPATH=. python tests/torch_bench_window.py [--robot panda|pointRobot] [--batch 1024]
+                                                    [--steps 38] [--threads 4] [--kick-after 25]
 
-Both fleets start from ``bench._scenario_for(..., "panda")`` (the JAX
+Both fleets start from ``bench._scenario_for(..., robot)`` (the JAX
 package's draw, handed to the port through ``interop``) and take
 ``--steps`` steps: ``bench.py``'s window is up to 8 warm-up steps, then 30
 timed. One JSON line per step with each package's converged fraction, mean
@@ -21,6 +22,7 @@ and the kicked counts' largest difference.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 import warnings
@@ -99,14 +101,18 @@ def record_shifts(runner):
     return shifts
 
 
-def run(batch: int, steps: int, kick_after: int = 25):
-    """Yield one record per step (see the module docstring)."""
+def run(batch: int, steps: int, kick_after: int = 25, robot: str = "panda", jax_riccati: str = "auto"):
+    """Yield one record per step of ``robot``'s fleet (see the module
+    docstring); the JAX solver's Riccati backward is ``jax_riccati``
+    (``"auto"``: the scan on the CPU; ``"pallas"``: the Pallas kernels its
+    fleet runs on its accelerator, in interpret mode on the CPU)."""
     warnings.simplefilter("ignore")
-    jp, _ = bench._load_problem("panda")
-    scen = bench._scenario_for(jp, batch, "panda")
+    jp, _ = bench._load_problem(robot)
+    jp.setup.solver = dataclasses.replace(jp.setup.solver, riccati_backend=jax_riccati)
+    scen = bench._scenario_for(jp, batch, robot)
     kick_kw, plain_kw = dict(kick_after=kick_after), dict(kick_after=kick_after, kick_scale=0.0)
     jax_state, jax_step = jax_fleet(jp, batch, scen, **kick_kw)
-    tp, _ = tbench._load_problem("panda")
+    tp, _ = tbench._load_problem(robot)
     tr = FleetRunner(tp, batch, device="cpu", kick_after=kick_after)
     shifts = record_shifts(tr)
     tsc = interop.scenario_from_numpy(np.asarray(scen.xinit), np.asarray(scen.params), device="cpu")
@@ -156,14 +162,16 @@ def summary(records):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--robot", choices=("panda", "pointRobot"), default="panda")
     parser.add_argument("--batch", type=int, default=1024)
     parser.add_argument("--steps", type=int, default=WINDOW[1])
     parser.add_argument("--threads", type=int, default=4)
     parser.add_argument("--kick-after", type=int, default=25, help="bench.py's default: 25")
+    parser.add_argument("--jax-riccati", choices=("auto", "pallas"), default="auto")
     args = parser.parse_args(argv)
     torch.set_num_threads(args.threads)
     records = []
-    for rec in run(args.batch, args.steps, args.kick_after):
+    for rec in run(args.batch, args.steps, args.kick_after, args.robot, args.jax_riccati):
         records.append(rec)
         print(json.dumps(rec), flush=True)
     print("WINDOW " + json.dumps(summary(records)), flush=True)
