@@ -28,9 +28,10 @@ The headline's fields are ``bench.py``'s, less ``vs_baseline``: that ratio
 divides by a per-chip target set for a TPU v5e-16, which says nothing of a
 card. In its place ``extra`` carries ``device`` (the card's name and power
 limit as ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
-gives them, ``"cpu"`` on the CPU) and ``riccati_launches``: each Riccati
-wrapper's launch counter over each timed window, by window (``panda``,
-``panda_b1``, ``panda_b64``, ``pointRobot``, ``boxer``).
+gives them, ``"cpu"`` on the CPU) and ``riccati_launches``: each kernel
+wrapper's launch counter (the two Riccati kernels' and the split
+expansion's ``fk_walk`` and ``gn_assemble``) over each timed window, by
+window (``panda``, ``panda_b1``, ``panda_b64``, ``pointRobot``, ``boxer``).
 
 Timing on the card:
 
@@ -80,7 +81,7 @@ import torch.distributed as dist  # noqa: E402
 
 from robot_mpcs_tpu_torch.config import Setup, boxer_setup, panda_setup, point_robot_setup  # noqa: E402
 from robot_mpcs_tpu_torch.models.problem import MpcProblem  # noqa: E402
-from robot_mpcs_tpu_torch.ops import _build, riccati_batched, riccati_packed  # noqa: E402
+from robot_mpcs_tpu_torch.ops import _build, fk_walk, gn_assemble, riccati_batched, riccati_packed  # noqa: E402
 from robot_mpcs_tpu_torch.parallel import distributed  # noqa: E402
 from robot_mpcs_tpu_torch.parallel.fleet import FleetRunner, random_fleet_scenario  # noqa: E402
 from robot_mpcs_tpu_torch.parallel.mesh import Mesh, make_mesh, pad_batch_to_mesh  # noqa: E402
@@ -145,10 +146,12 @@ EXTRA_FIELDS = (
 )
 #: each class's configuration file as a dict (no PyYAML on the card's host)
 _SETUPS = {"panda": panda_setup, "pointRobot": point_robot_setup, "boxer": boxer_setup}
-#: the Riccati wrappers whose launch counters the result line carries
+#: the kernel wrappers whose launch counters the result line carries
 KERNELS = {
     "riccati_backward_packed": riccati_packed.riccati_backward_packed,
     "riccati_backward_batched": riccati_batched.riccati_backward_batched,
+    "fk_walk": fk_walk.fk_walk,
+    "gn_assemble": gn_assemble.gn_assemble,
 }
 
 

@@ -13,6 +13,10 @@ dq)``; the Jacobian is assembled by the chain rule from the FK Jacobian and
 is ``None`` when the ``FkEval`` was built without one. (The JAX package gets
 the same Jacobian from a ``custom_jvp`` on its FK primitive and lets XLA
 deduplicate the repeated FK calls; eager PyTorch evaluates FK once instead.)
+The solver's split rows walk the chain with ``ops/fk_walk.fk_walk`` (the
+kernel on the card, the counterpart of the JAX package's batch rule
+``_walk_scalar``); rows that ``torch.func`` differentiates take the plain
+walk, and each caller says which.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from robot_mpcs_tpu_torch.config import MpcConfiguration, RobotConfiguration
 from robot_mpcs_tpu_torch.models.dimensions import ProblemDimensions
 from robot_mpcs_tpu_torch.models.fk import RobotKinematics
 from robot_mpcs_tpu_torch.models.params import ParamMap
+from robot_mpcs_tpu_torch.ops.fk_walk import fk_walk, fk_walk_reference
 
 #: Barrier clamp: inverse-clearance barrier terms ``w / b`` are evaluated as
 #: ``w / max(b, BARRIER_EPS)``. The reference's raw ``1/c`` becomes *negative*
@@ -51,19 +56,22 @@ def safe_barrier(b: torch.Tensor, eps: float = BARRIER_EPS) -> torch.Tensor:
 
 class FkEval:
     """Positions (and optionally geometric Jacobians) of a set of links at
-    one batch of configurations ``q (..., n)``, from a single FK walk."""
+    one batch of configurations ``q (..., n)``, from a single FK walk:
+    ``kernel=True`` through ``ops/fk_walk.fk_walk`` (the CUDA kernel for a
+    CUDA ``q``, its plain version on the CPU), ``kernel=False`` through the
+    plain walk on any device (a caller under ``torch.func`` transforms)."""
 
-    def __init__(self, kin: RobotKinematics, q: torch.Tensor, links: Sequence[str], jac: bool):
+    def __init__(self, kin: RobotKinematics, q: torch.Tensor, links: Sequence[str], jac: bool,
+                 *, kernel: bool):
         links = list(dict.fromkeys(links))
         self.q = q
         self.n = kin.n
         self._index = {l: i for i, l in enumerate(links)}
         if not links:
             self.P, self.J = None, None
-        elif jac:
-            self.P, self.J = kin.fk_pos_links_with_jac(q, links)
         else:
-            self.P, self.J = kin.fk_pos_links(q, links), None
+            walk = fk_walk if kernel else fk_walk_reference
+            self.P, self.J = walk(kin, q, links, jac)
         self.has_jac = jac
 
     def pos(self, link: str) -> torch.Tensor:

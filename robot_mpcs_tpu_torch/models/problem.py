@@ -162,9 +162,21 @@ class MpcProblem:
     # --------------------------------------------------- stage functions
 
     def _fk_all(self, z: torch.Tensor) -> FkEval:
-        """Positions (no Jacobians) of every link any component reads."""
+        """Positions (no Jacobians) of every link any component reads, by the
+        plain walk: the stage functions built on it are differentiated by
+        ``torch.func`` (the ``values`` and generic paths)."""
         links = [l for c in self.obj_components + self.ineq_components for l in c.fk_links()]
-        return FkEval(self.kin, z[..., : self.dims.n], links, jac=False)
+        return FkEval(self.kin, z[..., : self.dims.n], links, jac=False, kernel=False)
+
+    @property
+    def walk_links(self) -> List[str]:
+        """The links the split rows' FK walk computes: every link a q-family
+        row reads, then the end link (the fleet's end-effector position,
+        ``parallel/fleet.py``), each once. One chain, so the card builds one
+        ``fk_walk`` library per problem."""
+        ineq_q = [c for c in self.ineq_components if c.q_dependent]
+        links = [l for c in self.obj_components + ineq_q for l in c.fk_links()]
+        return list(dict.fromkeys(links + [self.robot.end_link]))
 
     def _stage_rows(self, z: torch.Tensor, p: torch.Tensor):
         """Per objective component, its residual and barrier rows and
@@ -298,15 +310,16 @@ class MpcProblem:
         )
         n_bar_q = sum(c.n_bar_q for c in self.obj_components)
         n_bar_aff = sum(c.n_bar_aff for c in self.obj_components)
-        fk_links = [l for c in self.obj_components + ineq_q for l in c.fk_links()]
+        fk_links = self.walk_links
 
         def q_rows(q, p, jac: bool = True):
             """[res_q; bar_q; con_q] — all FK-dependent rows ``(..., R_q)``
             and, with ``jac``, their q-Jacobian ``(..., R_q, n)`` (else None).
 
             Constraint rows here are UNSHIFTED; when ns > 0 the solver adds
-            the slack variable to them (constant unit Jacobian column)."""
-            fk = FkEval(self.kin, q, fk_links, jac)
+            the slack variable to them (constant unit Jacobian column). The
+            FK walk is ``ops/fk_walk.fk_walk``: the kernel on the card."""
+            fk = FkEval(self.kin, q, fk_links, jac, kernel=True)
             res = [c.residuals_q(fk, p, pm) for c in self.obj_components]
             bar = [c.barriers_q(fk, p, pm) for c in self.obj_components]
             con = [c.eval_constraint_q(fk, p, pm) for c in ineq_q]

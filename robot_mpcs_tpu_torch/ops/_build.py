@@ -15,7 +15,10 @@ failed build, or a shape of which one lane's shared memory does not fit a
 block (``check_fits``) raises: no wrapper falls back to its plain version or
 to the scan for a CUDA tensor. ``csrc/graph_cond.cu`` (the solver's
 conditional WHILE nodes, ``ops/graph_cond.py``) is built the same way with no
-shape: ``load_library("graph_cond", ())``.
+shape: ``load_library("graph_cond", ())``. The split expansion's two kernels
+are built the same way: ``csrc/gn_assemble.cu`` for a problem's row segment
+sizes, ``csrc/fk_walk.cu`` for a robot's chain and link set, whose one shape
+field is the string of its defines (``ops/fk_walk.walk_table``).
 
 Launch counts: each wrapper (``counted``) counts its launches by batch size.
 An eager launch counts on the host. A launch made while a CUDA graph is
@@ -56,12 +59,19 @@ NO_INSTANTIATION = -1
 #: ... and for a shape of which not one lane fits a block's shared memory
 NO_ROOM = -2
 #: the shape fields each source is compiled for, in the order of its
-#: launcher's arguments (``-DRICCATI_<FIELD>``)
+#: launcher's arguments (``-D<PREFIX>_<FIELD>``; ``fk_walk``'s one field is
+#: its chain, ``ops/fk_walk.walk_table``'s defines)
 SHAPE_FIELDS = {"riccati_packed": ("nx", "nw", "ns"), "riccati_batched": ("nx", "nw"),
+                "fk_walk": ("chain",),
+                "gn_assemble": ("qr", "qb", "qc", "ar", "ab", "ac", "nq", "nx", "nw", "ns"),
                 "graph_cond": ()}
+#: the prefix of each source's shape defines (``-D<PREFIX>_<FIELD>``)
+DEFINE_PREFIX = {"riccati_packed": "RICCATI", "riccati_batched": "RICCATI", "gn_assemble": "GN"}
 #: a symbol each source's library exports (``register_library`` checks it)
 ENTRY_POINTS = {"riccati_packed": "riccati_packed_launch",
                 "riccati_batched": "riccati_batched_launch",
+                "fk_walk": "fk_walk_launch",
+                "gn_assemble": "gn_assemble_launch",
                 "graph_cond": "graph_cond_while_begin"}
 #: counters on each device for the launches captured into CUDA graphs
 COUNTER_SLOTS = 256
@@ -175,20 +185,29 @@ class counted:
 
 
 def team_size(nx: int) -> int:
-    """Threads per lane, T: 16 at nx <= 8, else a warp."""
+    """Threads per lane of a Riccati sweep, T: 16 at nx <= 8, else a warp."""
     return 16 if nx <= 8 else 32
+
+
+#: threads per (lane, stage) item of the Gauss-Newton assembly: a warp
+GN_TEAM = 32
 
 
 def lane_floats(stem: str, shape, depth: int) -> int:
     """Floats of shared memory one lane of ``csrc/<stem>.cu`` takes with
     ``depth`` stage buffers: the ``PackedLayout`` / ``GeneralLayout`` of the
-    source (its exported ``<stem>_lane_bytes`` is held equal by the tests)."""
-    nx, nw = shape[0], shape[1]
-    m = 1 + nx
+    source, or one (lane, stage) item's ``GnLayout`` (its exported
+    ``<stem>_lane_bytes`` is held equal by the tests)."""
 
     def odd(x):  # an odd row stride (riccati_common.cuh)
         return x | 1
 
+    if stem == "gn_assemble":
+        qr, qb, qc, ar, ab, ac, nq, nx, nw, _ = shape
+        rq, ra, nv = qr + qb + qc, ar + ab + ac, nx + nw
+        return rq * nq + 2 * rq + 2 * ra + nv + nv * odd(nv)
+    nx, nw = shape[0], shape[1]
+    m = 1 + nx
     if stem == "riccati_packed":
         stage = nx + nw + nx * nx + nx * nw + nw * nw
         return depth * stage + nx * odd(nx) + nx + nx * odd(nw) + nw * nw + nw * m
@@ -200,21 +219,36 @@ def lane_floats(stem: str, shape, depth: int) -> int:
 def stage_depth(stem: str, shape) -> int:
     """Stage buffers per lane. The structured sweep: 2 (a deeper ring
     measured no faster). The general one: 3 where a block of 128 / T lanes
-    then stays within 48 KB (faster than 2 at boxer's shapes), else 2."""
+    then stays within 48 KB (faster than 2 at boxer's shapes), else 2. The
+    Gauss-Newton assembly has no ring: 1."""
     if stem == "riccati_packed":
         return 2
+    if stem == "gn_assemble":
+        return 1
     lanes = 128 // team_size(shape[0])
     return 3 if lanes * lane_floats(stem, shape, 3) * 4 <= 48 * 1024 else 2
 
 
 def check_shape(stem: str, shape) -> tuple:
-    """``shape`` as a tuple of ints for ``csrc/<stem>.cu``'s fields; raises
-    for one the kernel does not take."""
-    shape = tuple(int(v) for v in shape)
+    """``shape`` as a tuple of ints for ``csrc/<stem>.cu``'s fields (for
+    ``fk_walk``, its one chain string); raises for one the kernel does not
+    take."""
     fields = SHAPE_FIELDS[stem]
+    if stem == "fk_walk":
+        if len(shape) != 1 or not isinstance(shape[0], str) or "FK_N=" not in shape[0]:
+            raise ValueError(f"{stem}: {shape!r} is not a chain (ops/fk_walk.walk_table)")
+        return (shape[0],)
+    shape = tuple(int(v) for v in shape)
     if not fields and not shape:
         return shape
-    if len(shape) != len(fields) or min(shape[:2]) < 1:
+    if len(shape) != len(fields) or min(shape) < 0:
+        raise ValueError(f"{stem}: shape {fields} = {shape} is not a kernel shape")
+    if stem == "gn_assemble":
+        values = dict(zip(fields, shape))
+        if min(values["nx"], values["nw"]) < 1 or values["nq"] > values["nx"] or values["ns"] not in (0, 1):
+            raise ValueError(f"{stem}: shape {fields} = {shape} is not a split expansion")
+        return shape
+    if min(shape[:2]) < 1:
         raise ValueError(f"{stem}: shape {fields} = {shape} is not a kernel shape")
     if stem == "riccati_packed":
         nx, nw, ns = shape
@@ -231,24 +265,36 @@ def defines(stem: str, shape) -> List[str]:
     shape = check_shape(stem, shape)
     if not shape:
         return []
+    if stem == "fk_walk":
+        return [f"-D{token}" for token in shape[0].split(" ")]
     values = dict(zip(SHAPE_FIELDS[stem], shape))
-    values.update(t=team_size(shape[0]), depth=stage_depth(stem, shape))
-    return [f"-DRICCATI_{k.upper()}={v}" for k, v in values.items()]
+    values["t"] = GN_TEAM if stem == "gn_assemble" else team_size(shape[0])
+    if stem != "gn_assemble":
+        values["depth"] = stage_depth(stem, shape)
+    return [f"-D{DEFINE_PREFIX[stem]}_{k.upper()}={v}" for k, v in values.items()]
 
 
 def check_fits(stem: str, shape) -> None:
     """Raise unless one lane's shared memory at ``shape`` fits a block of an
     sm_90 card."""
-    if not SHAPE_FIELDS[stem]:
+    if stem not in DEFINE_PREFIX:  # no shared memory
         return
     need = 4 * lane_floats(stem, shape, stage_depth(stem, shape))
     limit = SM90_SHARED_OPTIN
     if need > limit:
         raise ValueError(
             f"csrc/{stem}.cu: one lane at {SHAPE_FIELDS[stem]} = {tuple(shape)} needs {need} bytes "
-            f"of shared memory, more than the {limit} a block may have; solve it with "
-            f'riccati_backend="scan"'
+            f"of shared memory, more than the {limit} a block may have{_remedy(stem)}"
         )
+
+
+def _remedy(stem: str) -> str:
+    """What a caller can do about a shape whose lane does not fit."""
+    return '; solve it with riccati_backend="scan"' if stem.startswith("riccati") else ""
+
+
+def _shape_text(stem: str, shape) -> str:
+    return "its chain" if stem == "fk_walk" else f"{SHAPE_FIELDS[stem]} = {tuple(shape)}"
 
 
 def build_dir() -> Path:
@@ -390,13 +436,13 @@ def raise_for_status(op: str, err: int, stem: str, shape) -> None:
     """Turn a launcher's return code into an exception."""
     if err == NO_INSTANTIATION:
         raise ValueError(
-            f"{op}: the csrc/{stem}.cu library loaded for {SHAPE_FIELDS[stem]} = "
-            f"{tuple(shape)} was built for another shape"
+            f"{op}: the csrc/{stem}.cu library loaded for {_shape_text(stem, shape)} was built "
+            f"for another shape"
         )
     if err == NO_ROOM:
         raise ValueError(
-            f"{op}: not one lane at {SHAPE_FIELDS[stem]} = {tuple(shape)} fits this card's "
-            f'shared memory; solve it with riccati_backend="scan"'
+            f"{op}: not one lane at {_shape_text(stem, shape)} fits this card's "
+            f"shared memory{_remedy(stem)}"
         )
     if err != 0:
         raise RuntimeError(f"{op}: kernel launch failed (cudaError {err})")

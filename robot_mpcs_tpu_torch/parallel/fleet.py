@@ -40,6 +40,7 @@ import torch
 import torch.distributed as dist
 
 from robot_mpcs_tpu_torch.config import SolverConfiguration
+from robot_mpcs_tpu_torch.models.components import FkEval
 from robot_mpcs_tpu_torch.models.problem import MpcProblem
 from robot_mpcs_tpu_torch.parallel.mesh import Mesh, shard_batch
 from robot_mpcs_tpu_torch.solver.types import SolveResult
@@ -280,7 +281,11 @@ class FleetRunner:
             return x_next.new_zeros(x_next.shape[0])
         start, size = self._goal
         goal = params[:, 0, start : start + size]
-        ee = self.problem.kin.fk_pos(x_next[:, : dims.n], self.problem.robot.end_link)
+        # the split rows' walk (``fk_walk``: the kernel on the card), of
+        # which the end link is one link
+        problem = self.problem
+        fk = FkEval(problem.kin, x_next[:, : dims.n], problem.walk_links, False, kernel=True)
+        ee = fk.pos(problem.robot.end_link)
         return torch.linalg.vector_norm(ee[:, : dims.m] - goal[:, : dims.m], dim=-1)
 
     def _post_step(self, state: FleetState, scenario: FleetScenario, res: SolveResult):

@@ -17,9 +17,12 @@ drives (reference ``robotmpcs/models/mpcModel.py:74-129`` builds the problem,
 * **Gauss-Newton expansion**, three paths as in the JAX package. The fast
   one takes two row families (``MpcProblem.split_callbacks``): FK-dependent
   rows with their analytic q-Jacobian, and affine rows with a constant
-  build-time Jacobian ``S_aff``. The JAX package's scalarized
-  ``custom_vmap`` assembly rule exists only because of XLA; here the
-  assembly is batched ``(B, N, ·)`` matrix products. For custom problems,
+  build-time Jacobian ``S_aff``. The JAX package's two hand-written batch
+  rules on this path are kernels here: the FK walk of the q rows
+  (``ops/fk_walk.py``, ``_walk_scalar``) and the assembly of the Riccati
+  blocks from the rows, fused with their per-row coefficients
+  (``ops/gn_assemble.py``, ``_gn_assemble_vmap``); on the CPU both run their
+  plain batched versions. For custom problems,
   the stacked ``values``/``weights`` form gets its Jacobian from one
   forward-mode pass (``torch.func.jacfwd`` under ``vmap``) over all stages,
   and a ``cost``/``ineq``-only problem the exact gradient and Hessian of its
@@ -51,6 +54,7 @@ import torch
 from robot_mpcs_tpu_torch.config import SolverConfiguration
 from robot_mpcs_tpu_torch.models.components import BARRIER_EPS
 from robot_mpcs_tpu_torch.models.dynamics import dynamics_jacobians
+from robot_mpcs_tpu_torch.ops.gn_assemble import GnLayout, gn_assemble, gn_coefs
 from robot_mpcs_tpu_torch.ops.linalg_small import chol_solve_unrolled
 from robot_mpcs_tpu_torch.ops.riccati_batched import riccati_backward_batched, riccati_sweep
 from robot_mpcs_tpu_torch.ops.riccati_packed import (
@@ -253,26 +257,6 @@ def build_solver(
     # al_stage_cost (B, N) and stage_expansion_blocks, the Riccati blocks
     # (lx, lw, lxx, lxw, lww) of the AL model, each contiguous (B, N, ...).
 
-    def _coefs(r, wr, b, wb, c, lam_seg, mu3):
-        """Per-row (gradient, curvature) scalars of the AL model: residual
-        rows w r^2, barrier rows w / b, constraint rows PHR."""
-        act = torch.clamp(lam_seg - mu3 * c, min=0.0)
-        # barrier rows are RAW clearances; inside the BARRIER_EPS clamp the
-        # barrier contributes zero gradient/curvature (the AL constraint
-        # supplies the restoring force there)
-        live = b > BARRIER_EPS
-        bs = torch.clamp(b, min=BARRIER_EPS)
-        g = torch.cat([2.0 * wr * r, torch.where(live, -wb / (bs * bs), 0.0), -act], -1)
-        h = torch.cat(
-            [
-                (2.0 * wr).expand_as(r),
-                torch.where(live, torch.clamp(2.0 * wb / (bs * bs * bs), min=0.0), 0.0),
-                mu3 * (act > 0),
-            ],
-            -1,
-        )
-        return g, h
-
     def blocks(g, H):
         return (
             g[..., :nx].contiguous(),
@@ -283,22 +267,17 @@ def build_solver(
         )
 
     if split:
-        n_qrows = qr + qb + qc
-        S = torch.as_tensor(S_np, **fdev)  # (n_arows, nv)
-        S_outer = torch.as_tensor(
-            np.einsum("ki,kj->kij", S_np, S_np).reshape(ar + ab + ac, nv * nv), **fdev
-        )
-        upper = torch.ones((nv, nv), dtype=torch.bool, device=dev).triu()
+        gn = GnLayout(q_seg, aff_seg, S_np, nx=nx, ns=ns, n_q=n_q, c_off=C_OFF)
 
-        def eval_families(X, W, P, jac: bool):
-            """(vq, Jq | None, va): q-family rows (+ q-Jacobian), affine rows."""
-            vq, Jq = stage.q_rows(X[..., :n_q], P, jac)
+        def eval_families(X, W, P):
+            """(vq, va): q-family rows (no Jacobian), affine rows."""
+            vq, _ = stage.q_rows(X[..., :n_q], P, False)
             va = stage.aff_rows(torch.cat([X, W], -1), P)
             if ns and qc:
                 # slack-shift the q-family module constraint rows (the affine
                 # family shifts its own rows inside aff_rows)
                 vq = torch.cat([vq[..., : qr + qb], vq[..., qr + qb :] + W[..., :1]], -1)
-            return vq, Jq, va
+            return vq, va
 
         def family_cost(vq, va, P):
             """(true stage cost (B, N), stacked constraint rows [con_q; con_aff])."""
@@ -309,47 +288,28 @@ def build_solver(
             return total, torch.cat([vq[..., qr + qb :], va[..., ar + ab :]], -1)
 
         def true_cost(X, W, P):
-            vq, _, va = eval_families(X, W, P, jac=False)
+            vq, va = eval_families(X, W, P)
             return family_cost(vq, va, P)[0]
 
         def stage_ineq(X, W, P):
-            vq, _, va = eval_families(X, W, P, jac=False)
+            vq, va = eval_families(X, W, P)
             return torch.cat([vq[..., qr + qb :], va[..., ar + ab :]], -1)
 
         def al_stage_cost(X, W, P, lam, mu):
             """AL merit per stage, (B, N); ``mu`` is the per-lane penalty (B,)."""
-            vq, _, va = eval_families(X, W, P, jac=False)
+            vq, va = eval_families(X, W, P)
             cost, c = family_cost(vq, va, P)
             return cost + _al_penalty(c + C_OFF, lam, mu[:, None])
 
         def stage_expansion_blocks(X, W, P, lam, mu):
             """Riccati blocks (lx, lw, lxx, lxw, lww) of the Gauss-Newton AL
-            model at every stage, each contiguous ``(B, N, ...)``."""
-            vq, Jq, va = eval_families(X, W, P, jac=True)
-            cq = vq[..., qr + qb :] + C_OFF[:, :qc]
-            ca = va[..., ar + ab :] + C_OFF[:, qc:]
-            wrq, wbq, wra, wba = stage.weights_split(P)
-            mu3 = mu[:, None, None]
-            ga, ha = _coefs(va[..., :ar], wra, va[..., ar : ar + ab], wba, ca, lam[..., qc:], mu3)
-            g = ga @ S  # (B, N, nv)
-            H = (ha @ S_outer).reshape(ha.shape[:-1] + (nv, nv))
-            if n_qrows:
-                gq, hq = _coefs(
-                    vq[..., :qr], wrq, vq[..., qr : qr + qb], wbq, cq, lam[..., :qc], mu3
-                )
-                g[..., :n_q] += (gq.unsqueeze(-2) @ Jq).squeeze(-2)
-                H[..., :n_q, :n_q] += (Jq * hq[..., None]).transpose(-1, -2) @ Jq
-                if ns and qc:
-                    s_col = nx
-                    gq_c, hq_c, Jq_c = gq[..., qr + qb :], hq[..., qr + qb :], Jq[..., qr + qb :, :]
-                    cross = (hq_c.unsqueeze(-2) @ Jq_c).squeeze(-2)
-                    g[..., s_col] += torch.sum(gq_c, -1)
-                    H[..., :n_q, s_col] += cross
-                    H[..., s_col, :n_q] += cross
-                    H[..., s_col, s_col] += torch.sum(hq_c, -1)
-            # mirror the upper triangle (the JAX assembly computes j >= i only)
-            H = torch.where(upper, H, H.transpose(-1, -2))
-            return blocks(g, H)
+            model at every stage, each contiguous ``(B, N, ...)``: the q rows
+            with their Jacobian (the ``fk_walk`` kernel on the card) and the
+            affine rows, assembled by ``gn_assemble`` (the kernel on the
+            card), which also slack-shifts the q constraint rows."""
+            vq, Jq = stage.q_rows(X[..., :n_q], P, True)
+            va = stage.aff_rows(torch.cat([X, W], -1), P)
+            return gn_assemble(vq, Jq, va, *stage.weights_split(P), lam, mu, W, layout=gn)
 
     elif structured:
 
@@ -391,7 +351,7 @@ def build_solver(
             J = J.reshape(lead + J.shape[-2:]).to(torch.float32)
             r, b, c = split_vals(vals.reshape(lead + vals.shape[-1:]))
             w_res, w_bar = stage.weights(P)
-            g_row, h_row = _coefs(r, w_res, b, w_bar, c + C_OFF, lam, mu[:, None, None])
+            g_row, h_row = gn_coefs(r, w_res, b, w_bar, c + C_OFF, lam, mu[:, None, None])
             g = (g_row.unsqueeze(-2) @ J).squeeze(-2)
             H = (J * h_row[..., None]).transpose(-1, -2) @ J
             return blocks(g, H)

@@ -10,11 +10,13 @@ a fresh process compiles before its first solve on the card is the Riccati
 kernel that its problem launches, with ``nvcc`` (``ops/_build.py``). So the
 port's exported program is that kernel's library:
 
-* ``export_planner_solve(problem, path)`` builds the library that the
+* ``export_planner_solve(problem, path)`` builds the libraries that the
   problem's solve launches (``riccati_packed`` for holonomic problems,
   ``riccati_batched`` otherwise, as ``solver/al_ilqr.build_solver`` chooses;
   none for ``riccati_backend="scan"``), compiled for the problem's own shape
-  (``kernel_shapes``), and the library of the conditional WHILE nodes that
+  (``kernel_shapes``), the split expansion's ``fk_walk`` and
+  ``gn_assemble`` (``expansion_kernels``), and the library of the
+  conditional WHILE nodes that
   the solve's CUDA graph needs for its loops (``graph_cond``,
   ``ops/graph_cond.py``; ``libraries``), copies them into the artifact
   directory and writes ``export_meta.yaml`` beside them;
@@ -39,10 +41,11 @@ plain version.
 The fleet step (``export_fleet_step`` / ``load_fleet_step``, behind
 ``FleetRunner.export_step`` and ``FleetRunner(..., artifact_dir=...)``):
 the JAX package serialises the whole jitted fleet step. The port's compiled
-part of a fleet step is the same pair of libraries: phase 1 and every
-rescue tier launch one kernel at one shape, the problem's
-(``kernel_shapes``), in a graph whose loops are WHILE nodes
-(``libraries``). ``export_fleet_step`` copies them into the artifact directory beside
+part of a fleet step is the same set of libraries: phase 1 and every
+rescue tier launch one Riccati kernel at one shape, the problem's
+(``kernel_shapes``), and the split expansion's two kernels (its FK walk
+also gives the step's end-effector positions), in a graph whose loops are
+WHILE nodes (``libraries``). ``export_fleet_step`` copies them into the artifact directory beside
 ``fleet_meta.yaml``, which holds the library fingerprint above and
 ``_fleet_fingerprint``'s fields of the JAX package: the batch size, the
 mesh width (``n_devices``), the tier schedule, ``stall_reset_after`` and
@@ -74,8 +77,8 @@ FLEET_META = "fleet_meta.yaml"
 
 
 def kernel_shapes(problem) -> List[Tuple[str, tuple]]:
-    """The kernel libraries the problem's solve launches on the card: its
-    ``csrc`` stem and the shape it is compiled for, ``(nx, nw, ns)`` for the
+    """The Riccati kernel library the problem's solve launches on the card:
+    its ``csrc`` stem and the shape it is compiled for, ``(nx, nw, ns)`` for the
     structured sweep and ``(nx, nw)`` for the general one (nw = nu + ns)."""
     stem = problem.build_solver(device="cpu").riccati_kernel
     if stem is None:
@@ -85,11 +88,25 @@ def kernel_shapes(problem) -> List[Tuple[str, tuple]]:
     return [(stem, shape)]
 
 
+def expansion_kernels(problem) -> List[Tuple[str, tuple]]:
+    """The split expansion's kernel libraries: the FK walk of the problem's
+    chain and link set (``csrc/fk_walk.cu``, shape ``(chain,)``,
+    ``ops/fk_walk.walk_table``) and the Gauss-Newton assembly at its row
+    segments (``csrc/gn_assemble.cu``, ``GnLayout.shape``)."""
+    from robot_mpcs_tpu_torch.ops.fk_walk import walk_table
+
+    split = problem.split_callbacks()
+    d = problem.dims
+    gn = (*split["q_seg"], *split["aff_seg"], split["n_q"], d.nx, d.nu + d.ns, d.ns)
+    return [("fk_walk", (walk_table(problem.kin, problem.walk_links).spec,)), ("gn_assemble", gn)]
+
+
 def libraries(problem) -> List[Tuple[str, tuple]]:
-    """What the problem's solve loads on the card: its kernel
-    (``kernel_shapes``) and the WHILE-node library its CUDA graph's loops
-    need (``csrc/graph_cond.cu``, no shape)."""
-    return kernel_shapes(problem) + [("graph_cond", ())]
+    """What the problem's solve loads on the card: its Riccati kernel
+    (``kernel_shapes``), the split expansion's kernels
+    (``expansion_kernels``) and the WHILE-node library its CUDA graph's
+    loops need (``csrc/graph_cond.cu``, no shape)."""
+    return kernel_shapes(problem) + expansion_kernels(problem) + [("graph_cond", ())]
 
 
 def _device_fingerprint(device: torch.device) -> dict:
@@ -204,7 +221,7 @@ def _fleet_fingerprint(runner) -> dict:
 
 def export_fleet_step(runner, path: str) -> str:
     """Export the compiled part of ``runner``'s fleet step into ``path``:
-    the kernel library its phase 1 and rescue tiers launch, beside
+    the kernel libraries its phase 1 and rescue tiers launch, beside
     ``fleet_meta.yaml`` (``_fleet_fingerprint``). Returns the metadata
     file's path. Raises where the library cannot be built (no ``nvcc``)."""
     kernels = libraries(runner.problem)

@@ -9,10 +9,13 @@ g++ against ``tests/cuda_cpu_shim.h`` (``tests/test_torch_riccati_emulated.py``)
 a library with the launcher's C entry point. The loader must register it
 without calling ``nvcc``, and its launcher must compute the sweep (held to
 the plain version at the emulated tests' tolerances). An artifact also
-carries the library of the solve graph's WHILE nodes (``csrc/graph_cond.cu``,
+carries the split expansion's two kernels, the FK walk of the robot's
+chain and the Gauss-Newton assembly (``utils/aot.expansion_kernels``, g++
+builds too, whose launchers must compute the walk and the assembly), and
+the library of the solve graph's WHILE nodes (``csrc/graph_cond.cu``,
 ``ops/graph_cond.py``): here a stand-in with its C entry points
 (``while_node_stub``), which the CPU never calls, registered beside the
-kernel. The card runs the same round trip with the real libraries
+kernels. The card runs the same round trip with the real libraries
 (``chip_smoke.py``'s deploy phase, ``tests/test_torch_gpu.py``).
 """
 
@@ -31,6 +34,8 @@ import yaml
 from robot_mpcs_tpu_torch.config import Setup, load_setup
 from robot_mpcs_tpu_torch.models.problem import MpcProblem
 from robot_mpcs_tpu_torch.ops import _build
+from robot_mpcs_tpu_torch.ops import fk_walk as fw
+from robot_mpcs_tpu_torch.ops import gn_assemble as ga
 from robot_mpcs_tpu_torch.ops import riccati_batched as rb
 from robot_mpcs_tpu_torch.ops import riccati_packed as rp
 from robot_mpcs_tpu_torch.planner.mpc_planner import MPCPlanner
@@ -65,7 +70,8 @@ def emulated_libs(tmp_path_factory):
         pytest.skip("needs g++ (C++20) to compile the kernels for the CPU")
     from test_torch_riccati_emulated import _compile_all
 
-    return _compile_all(tmp_path_factory.mktemp("emulated"), KERNELS.values())
+    pairs = list(KERNELS.values()) + [pair for kind in KERNELS for pair in aot.expansion_kernels(_problem(kind))]
+    return _compile_all(tmp_path_factory.mktemp("emulated"), pairs)
 
 
 #: the C entry points of ``csrc/graph_cond.cu``, as a stand-in that fails each call
@@ -88,16 +94,21 @@ def while_node_stub(out_dir) -> str:
 
 
 def built(lib, stub):
-    """A stand-in for ``_build.build_library``: ``lib`` for the kernel,
-    ``stub`` for the WHILE-node library."""
-    return lambda stem, shape: (stub if stem == "graph_cond" else lib, "")
+    """A stand-in for ``_build.build_library``: ``lib`` for each kernel (a
+    path, or {stem: path}), ``stub`` for the WHILE-node library."""
+    return lambda stem, shape: (stub if stem == "graph_cond" else lib[stem] if isinstance(lib, dict) else lib, "")
 
 
-def libraries_meta(stem, shape) -> dict:
-    """An artifact's ``kernels`` entry: the kernel and the WHILE-node library."""
-    return {stem: {"file": f"lib{stem}.so", "shape": list(shape), "source_key": _build.source_key(stem, shape)},
-            "graph_cond": {"file": "libgraph_cond.so", "shape": [],
-                           "source_key": _build.source_key("graph_cond", ())}}
+def libraries_meta(problem) -> dict:
+    """An artifact's ``kernels`` entry: the Riccati kernel, the expansion's
+    two kernels and the WHILE-node library."""
+    return {stem: {"file": f"lib{stem}.so", "shape": list(shape), "source_key": _build.source_key(stem, shape)}
+            for stem, shape in aot.libraries(problem)}
+
+
+def problem_libs(emulated_libs, problem) -> dict:
+    """{stem: the g++ build} of the kernels ``problem``'s solve loads."""
+    return {stem: emulated_libs[(stem, shape)] for stem, shape in aot.libraries(problem) if stem != "graph_cond"}
 
 
 @pytest.fixture(scope="module")
@@ -143,17 +154,35 @@ def test_generate_solver_on_the_cpu_writes_the_yamls_only(tmp_path):
 def test_exported_library_loads_without_nvcc(kind, emulated_libs, stub_lib, no_nvcc, monkeypatch, tmp_path):
     problem, (stem, shape) = _problem(kind), KERNELS[kind]
     assert aot.kernel_shapes(problem) == [(stem, shape)]
-    assert aot.libraries(problem) == [(stem, shape), ("graph_cond", ())]
-    meta_path = _export(monkeypatch, problem, tmp_path / "artifact", emulated_libs[(stem, shape)], stub_lib)
+    expansion = aot.expansion_kernels(problem)
+    assert [s for s, _ in expansion] == ["fk_walk", "gn_assemble"]
+    assert aot.libraries(problem) == [(stem, shape), *expansion, ("graph_cond", ())]
+    meta_path = _export(monkeypatch, problem, tmp_path / "artifact", problem_libs(emulated_libs, problem), stub_lib)
     with open(meta_path) as f:
         meta = yaml.safe_load(f)
-    assert meta["kernels"] == libraries_meta(stem, shape)
+    assert meta["kernels"] == libraries_meta(problem)
     assert meta["torch"] == torch.__version__ and meta["solver_name"] == problem.solver_name
 
     libs = aot.load_planner_solve(problem, str(tmp_path / "artifact"), device="cpu")
     want = os.path.abspath(tmp_path / "artifact" / f"lib{stem}.so")
-    assert libs == {stem: want, "graph_cond": os.path.abspath(tmp_path / "artifact" / "libgraph_cond.so")}
+    assert libs == {s: os.path.abspath(tmp_path / "artifact" / f"lib{s}.so") for s, _ in aot.libraries(problem)}
     assert _build.load_library("graph_cond", ())._name == libs["graph_cond"]
+    # the expansion's libraries are the registered copies too, and compute
+    # the walk and the assembly (host threads)
+    from test_torch_fk_gn_emulated import _load, emulated_assembly, emulated_walk, gn_inputs, random_q
+
+    for s, sh in expansion:
+        assert _build.load_library(s, sh)._name == libs[s]
+    fk_lib, gn_lib = (_load(libs[s]) for s, _ in expansion)
+    q = random_q(problem, 9, seed=4)
+    P, J = emulated_walk(fk_lib, problem, q, True)
+    P_ref, J_ref = fw.fk_walk_reference(problem.kin, q, problem.walk_links, True)
+    torch.testing.assert_close(P, P_ref, rtol=0, atol=1e-5)
+    torch.testing.assert_close(J, J_ref, rtol=0, atol=1e-5)
+    inputs, layout = gn_inputs(problem, 2, 3, seed=4)
+    assert layout.shape == expansion[1][1]
+    for g, w in zip(emulated_assembly(gn_lib, inputs, layout), ga.gn_assemble_reference(*inputs, layout=layout)):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5 * float(w.abs().max()))
     module = rp if stem == "riccati_packed" else rb
     lib = module.build_kernel(*shape)  # load_library: the registered copy, no nvcc
     assert lib._name == want and _build.load_library(stem, shape) is lib

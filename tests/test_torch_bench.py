@@ -217,7 +217,8 @@ def _check_headline(line):
     assert extra["device"] == "cpu"
     # the CPU runs the plain versions: no kernel launch is counted
     assert extra["riccati_launches"] == {
-        "riccati_backward_packed": {"panda": 0}, "riccati_backward_batched": {"panda": 0}
+        "riccati_backward_packed": {"panda": 0}, "riccati_backward_batched": {"panda": 0},
+        "fk_walk": {"panda": 0}, "gn_assemble": {"panda": 0},
     }
     assert all(np.isfinite(v) for v in extra.values() if isinstance(v, float))
     assert extra["max_violation_converged"] <= 1e-4

@@ -95,6 +95,22 @@ def test_example_smoke(kind, capsys):
     assert "goal NOT reached in 5 steps" in out
 
 
+def test_offset_starts_of_the_card_check(capsys):
+    """``chip_smoke.offset_start``, the boxer example's extra starts on the
+    card: seed 0 keeps the example's own start; seed k moves every state
+    entry by 1e-3 times seed k's normal draw, the same at every episode, and
+    the episode starts there."""
+    from chip_smoke import START_OFFSET, offset_start
+
+    own = boxer_example.make_example("cpu")
+    assert np.array_equal(offset_start(own, 0).initial_state(), np.zeros(own.problem.dims.nx))
+    ex = offset_start(boxer_example.make_example("cpu"), 3)
+    want = START_OFFSET * np.random.default_rng(3).normal(size=own.problem.dims.nx)
+    assert np.array_equal(ex.initial_state(), want) and np.array_equal(ex.initial_state(), want)
+    ex.run(1)
+    assert "solver failed" not in capsys.readouterr().out
+
+
 @pytest.mark.parametrize("kind", ["pointRobot", "panda"])
 def test_example_closed_loop_matches_jax(kind):
     jex, tex = _jax_example(kind), PORT[kind].make_example("cpu")

@@ -6,7 +6,8 @@ launch and the library of its graph's WHILE nodes (``utils/aot.py``),
 written beside ``fleet_meta.yaml``. As in
 ``tests/test_torch_aot.py``, there is no card and no ``nvcc`` here: the card's
 fingerprint is a fixed stand-in and the library is the structured kernel
-compiled with g++ against ``tests/cuda_cpu_shim.h``. A fresh process must
+compiled with g++ against ``tests/cuda_cpu_shim.h``, beside the split
+expansion's two kernels (``csrc/fk_walk.cu``, ``csrc/gn_assemble.cu``). A fresh process must
 register it without ``nvcc`` and step the fleet as this process does; a
 runner of another batch, tier schedule, stall reset or kick, or an
 unreadable export, is declined with a warning. ``chip_smoke.py``'s graph
@@ -30,7 +31,7 @@ from robot_mpcs_tpu_torch.ops import _build
 from robot_mpcs_tpu_torch.parallel.fleet import FleetRunner, random_fleet_scenario
 from robot_mpcs_tpu_torch.utils import aot
 
-from test_torch_aot import CARD, built, libraries_meta, no_nvcc, stub_lib  # noqa: F401  (fixtures)
+from test_torch_aot import CARD, built, libraries_meta, no_nvcc, problem_libs, stub_lib  # noqa: F401  (fixtures)
 
 torch.set_num_threads(2)
 
@@ -41,19 +42,22 @@ RUNNER = dict(batch_size=B, device="cpu", kick_after=4, kick_scale=0.5)
 
 
 @pytest.fixture(scope="module")
-def emulated_lib(tmp_path_factory):
+def problem():
+    return MpcProblem(Setup.from_dict(point_robot_setup()))
+
+
+@pytest.fixture(scope="module")
+def emulated_lib(problem, tmp_path_factory):
+    """{stem: g++ build} of the kernels the fleet step loads: the Riccati
+    kernel and the split expansion's two."""
     import shutil
 
     if shutil.which("g++") is None:
         pytest.skip("needs g++ (C++20) to compile the kernels for the CPU")
     from test_torch_riccati_emulated import _compile_all
 
-    return _compile_all(tmp_path_factory.mktemp("emulated"), [(STEM, SHAPE)])[(STEM, SHAPE)]
-
-
-@pytest.fixture(scope="module")
-def problem():
-    return MpcProblem(Setup.from_dict(point_robot_setup()))
+    pairs = [pair for pair in aot.libraries(problem) if pair[0] != "graph_cond"]
+    return problem_libs(_compile_all(tmp_path_factory.mktemp("emulated"), pairs), problem)
 
 
 def _export(monkeypatch, runner, path, lib, stub=None):
@@ -70,21 +74,24 @@ def test_export_step_writes_the_library_and_fleet_meta(problem, emulated_lib, st
     runner = FleetRunner(problem, **RUNNER)
     out = _export(monkeypatch, runner, tmp_path / "fleet", emulated_lib, stub_lib)
     assert out == str(tmp_path / "fleet" / aot.FLEET_META)
-    assert sorted(os.listdir(tmp_path / "fleet")) == [aot.FLEET_META, "libgraph_cond.so", f"lib{STEM}.so"]
+    assert sorted(os.listdir(tmp_path / "fleet")) == [aot.FLEET_META, "libfk_walk.so", "libgn_assemble.so",
+                                                      "libgraph_cond.so", f"lib{STEM}.so"]
     with open(out) as f:
         meta = yaml.safe_load(f)
     # the JAX package's _fleet_fingerprint fields ...
     assert meta["batch"] == B and meta["n_devices"] == 1 and meta["stall_reset_after"] == 3
     assert meta["tiers"] == [[8, 5, 10, 4]]  # ratio, al, ilqr, line search: the default tier
     assert meta["kick"] == [4, 0.15, 0.5]
-    # ... and the libraries': one kernel at the problem's shape serves every
-    # tier, in a graph whose loops are WHILE nodes
-    assert meta["kernels"] == libraries_meta(STEM, SHAPE)
+    # ... and the libraries': one Riccati kernel at the problem's shape and
+    # the expansion's two serve every tier, in a graph whose loops are WHILE
+    # nodes
+    assert aot.kernel_shapes(problem) == [(STEM, SHAPE)]
+    assert meta["kernels"] == libraries_meta(problem)
     assert meta["torch"] == torch.__version__ and meta["N"] == problem.dims.N
     # an artifact_dir runner of the same configuration registers it, no nvcc
     FleetRunner(problem, **RUNNER, artifact_dir=str(tmp_path / "fleet"))
-    assert _build._libs[(STEM, SHAPE)]._name == str(tmp_path / "fleet" / f"lib{STEM}.so")
-    assert _build._libs[("graph_cond", ())]._name == str(tmp_path / "fleet" / "libgraph_cond.so")
+    for stem, shape in aot.libraries(problem):
+        assert _build._libs[(stem, tuple(shape))]._name == str(tmp_path / "fleet" / f"lib{stem}.so")
     assert not os.path.exists(tmp_path / "cache")
 
 
@@ -125,8 +132,7 @@ def test_fresh_process_steps_the_fleet_from_the_export(problem, emulated_lib, st
                          env=env, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
-    assert got["libs"] == {STEM: str(tmp_path / "fleet" / f"lib{STEM}.so"),
-                           "graph_cond": str(tmp_path / "fleet" / "libgraph_cond.so")}
+    assert got["libs"] == {stem: str(tmp_path / "fleet" / f"lib{stem}.so") for stem, _ in aot.libraries(problem)}
     assert not os.path.exists(tmp_path / "cache")  # nothing built
     np.testing.assert_array_equal(np.asarray(got["x"], np.float32), state.x.numpy())
     np.testing.assert_array_equal(np.asarray(got["z"], np.float32), state.z_warm.numpy())

@@ -8,7 +8,11 @@ Each CUDA kernel is held against its plain PyTorch version on the same CUDA
 tensors: the structured sweep at the tolerances of
 ``tests/test_riccati_packed.py:88-89`` (rtol 2e-3, atol 2e-5), the general
 sweep at those of ``tests/test_riccati_pallas.py:70-75`` (rtol 2e-3, atol
-2e-4): f32 with sums in another order, FMA contraction on the card.
+2e-4): f32 with sums in another order, FMA contraction on the card. The
+split expansion's FK walk at 1e-5 absolute on P and J and its Gauss-Newton
+assembly with each entry within 1e-4 of its own term scale (the sum of the
+magnitudes of its terms, ``ops.gn_assemble.gn_term_scale``), the bars of
+``tests/test_torch_fk_walk.py`` and ``tests/test_torch_gn_assemble.py``.
 """
 
 import contextlib
@@ -481,8 +485,8 @@ def test_reference_form_solves_on_card(generic):
 @pytest.mark.gpu
 def test_example_reaches_its_goal_on_card(capsys):
     """The pointRobot example's full episode on the card through the
-    command line's path: goal reached, only the structured kernel launched,
-    every launch at B=1."""
+    command line's path: goal reached, only the structured kernel and the
+    split expansion's two launched, every launch at B=1."""
     _need_card()
     from robot_mpcs_tpu_torch.examples import point_robot_example
 
@@ -491,7 +495,8 @@ def test_example_reaches_its_goal_on_card(capsys):
         assert point_robot_example.main([]) == 0
     assert "goal reached at step" in capsys.readouterr().out
     assert rp.riccati_backward_packed.launches > before
-    assert tally and all(name == "riccati_backward_packed" and B == 1 for name, B in tally)
+    assert {name for name, _ in tally} == {"riccati_backward_packed", "fk_walk", "gn_assemble"}
+    assert all(B == 1 for _, B in tally)
 
 
 @pytest.mark.gpu
@@ -704,9 +709,10 @@ def test_whole_step_graph_equals_eager_on_card(B, steps, kick_after):
     """``FleetRunner.step`` captured whole (phase 1, the rescue tier, the
     post-step, the kick's draw, the metrics) equals the eager units bit for
     bit, the kick live at B=512; launches by (kernel, B), counted on the
-    device under the graph, equal the eager counts (16 at 4096 + 50 at 512 a
-    step at full width); each step after the first is one replay with no
-    host read."""
+    device under the graph, equal the eager counts (the structured sweep 16
+    at 4096 + 50 at 512 a step at full width, the split expansion's kernels
+    at both widths); each step after the first is one replay with no host
+    read."""
     _need_card()
     from robot_mpcs_tpu_torch.parallel.fleet import FleetRunner, random_fleet_scenario
     from robot_mpcs_tpu_torch.solver import units
@@ -721,7 +727,10 @@ def test_whole_step_graph_equals_eager_on_card(B, steps, kick_after):
     (eager, eager_tally), (graphed, tally) = runs["eager"], runs["graphed"]
     assert tally == eager_tally
     if B == 4096:
-        assert tally == {("riccati_backward_packed", 4096): 16 * steps, ("riccati_backward_packed", 512): 50 * steps}
+        sweeps = {k: n for k, n in tally.items() if k[0] == "riccati_backward_packed"}
+        assert sweeps == {("riccati_backward_packed", 4096): 16 * steps, ("riccati_backward_packed", 512): 50 * steps}
+        assert {k for k in tally if k[0] != "riccati_backward_packed"} == {
+            (name, b) for name in ("fk_walk", "gn_assemble") for b in (4096, 512)}
     for i, (e, g) in enumerate(zip(eager, graphed)):
         for a, b in zip(e[0] + e[1] + [e[2]], g[0] + g[1] + [g[2]]):
             assert torch.equal(a, b), i
@@ -761,3 +770,118 @@ def test_solver_without_conditional_nodes_raises_on_card(monkeypatch):
     with pytest.raises(RuntimeError, match="conditional graph nodes.*forced off"):
         solve(*args)
     assert rp.riccati_backward_packed.launches == before
+
+
+#: the split expansion's kernels on the card: robots and (B, N), a width of
+#: a 128-thread block and a ragged one (37 lanes)
+EXPANSION_ROBOTS = ["panda", "pointRobot", "boxer", "mobilePanda", "chain6", "pointRobotSlack", "pandaSlack"]
+
+
+def _expansion_problem(robot):
+    from robot_mpcs_tpu_torch.config import Setup
+    from robot_mpcs_tpu_torch.models.problem import MpcProblem
+    from test_torch_fk_gn_emulated import SETUPS
+
+    return MpcProblem(Setup.from_dict(SETUPS[robot]()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("robot", EXPANSION_ROBOTS)
+@pytest.mark.parametrize("B", [64, 37])
+def test_fk_walk_matches_plain_on_card(robot, B):
+    """The FK walk kernel, with and without the Jacobian, reading q in place
+    from states of width nx, against the plain walk on the same tensors; one
+    counted launch a call."""
+    _need_card()
+    from robot_mpcs_tpu_torch.ops import fk_walk as fw
+
+    problem = _expansion_problem(robot)
+    d = problem.dims
+    rng = np.random.default_rng(B)
+    X = torch.as_tensor(rng.uniform(-np.pi, np.pi, size=(B, d.N, d.nx)).astype(np.float32), device="cuda")
+    for jac in (True, False):
+        before = fw.fk_walk.launches
+        P, J = fw.fk_walk(problem.kin, X[..., : d.n], problem.walk_links, jac)
+        assert fw.fk_walk.launches == before + 1
+        P_r, J_r = fw.fk_walk_reference(problem.kin, X[..., : d.n], problem.walk_links, jac)
+        torch.testing.assert_close(P, P_r, rtol=0, atol=1e-5)
+        if jac:
+            torch.testing.assert_close(J, J_r, rtol=0, atol=1e-5)
+        else:
+            assert J is None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("robot", EXPANSION_ROBOTS)
+@pytest.mark.parametrize("B", [64, 37])
+def test_gn_assemble_matches_plain_on_card(robot, B):
+    """The assembly kernel against the plain version on the same tensors
+    (penalties 1e1 to 1e5, active rows, dead barriers, the stage-0 pins;
+    live barriers away from the clamp, then just above it), each entry within
+    1e-4 of its own term scale (``chip_smoke.gn_excess``);
+    lxx and lww exactly symmetric; one counted launch a call; each lane's
+    blocks the same assembled alone."""
+    _need_card()
+    from robot_mpcs_tpu_torch.ops import gn_assemble as ga
+
+    problem = _expansion_problem(robot)
+    arrays, c_off = chip_smoke.random_gn_inputs(problem, B, problem.dims.N, seed=B)
+    inputs = [torch.as_tensor(a, device="cuda") for a in arrays]
+    layout = chip_smoke.gn_layout(problem, torch.as_tensor(c_off, device="cuda"))
+    before = ga.gn_assemble.launches
+    got = ga.gn_assemble(*inputs, layout=layout)
+    assert ga.gn_assemble.launches == before + 1
+    want = ga.gn_assemble_reference(*inputs, layout=layout)
+    assert chip_smoke.gn_excess(got, want, ga.gn_term_scale(*inputs, layout=layout)) <= 1.0
+    assert torch.equal(got[2], got[2].transpose(-1, -2)) and torch.equal(got[4], got[4].transpose(-1, -2))
+    one = ga.gn_assemble(*(t[5:6] for t in inputs), layout=layout)
+    assert all(torch.equal(o[0], g[5]) for o, g in zip(one, got))
+    # live barriers just above the clamp, whose curvatures outweigh the rest
+    arrays, _ = chip_smoke.random_gn_inputs(problem, B, problem.dims.N, seed=B, near_clamp=True)
+    inputs = [torch.as_tensor(a, device="cuda") for a in arrays]
+    got, want = ga.gn_assemble(*inputs, layout=layout), ga.gn_assemble_reference(*inputs, layout=layout)
+    assert chip_smoke.gn_excess(got, want, ga.gn_term_scale(*inputs, layout=layout)) <= 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("robot", ["panda", "boxer", "pandaSlack"])
+def test_split_expansion_runs_the_kernels_on_card(robot, monkeypatch):
+    """The solver's split expansion on the card goes through both kernels
+    (one launch of each a call, counted by B), and its blocks equal the same
+    expansion assembled by the plain assembly from the same rows (each entry
+    within 1e-4 of its own term scale). The rows are the walk kernel's in both,
+    which ``test_fk_walk_matches_plain_on_card`` holds to the plain walk:
+    rows composed from the walk (a clearance's norm, the legacy goal
+    objective's scaled residuals) carry its rounding with cancellation, and
+    a constraint row's rounding moves its PHR term by the penalty (up to 1e5
+    here), so the whole expansion is not held to the plain walk's."""
+    _need_card()
+    from robot_mpcs_tpu_torch.ops import fk_walk as fw
+    from robot_mpcs_tpu_torch.ops import gn_assemble as ga
+    from robot_mpcs_tpu_torch.solver import al_ilqr
+    from test_torch_fk_gn_emulated import split_rows
+
+    problem = _expansion_problem(robot)
+    d = problem.dims
+    rng = np.random.default_rng(0)
+    B = 16
+    arrays = [(0.6 * rng.normal(size=(B, d.N, d.nx))).astype(np.float32),
+              (0.4 * rng.normal(size=(B, d.N, d.nu + d.ns))).astype(np.float32),
+              (np.abs(rng.normal(size=(B, d.N, problem.npar))) * 0.5 + 0.1).astype(np.float32),
+              np.abs(rng.normal(size=(B, d.N, problem.n_con))).astype(np.float32),
+              (10.0 ** rng.uniform(1, 5, size=(B,))).astype(np.float32)]
+    if d.ns:
+        arrays[1][..., 0] = np.abs(arrays[1][..., 0])
+    args = [torch.as_tensor(a, device="cuda") for a in arrays]
+    with chip_smoke.launches_by_batch(1) as tally:
+        got = problem.build_solver(device="cuda")._internals["stage_expansion_blocks"](*args)
+    assert dict(tally) == {("fk_walk", B): 1, ("gn_assemble", B): 1}
+    assert fw.fk_walk.launches > 0 and ga.gn_assemble.launches > 0
+
+    monkeypatch.setattr(al_ilqr, "gn_assemble", ga.gn_assemble_reference)
+    solve = problem.build_solver(device="cuda")
+    want = solve._internals["stage_expansion_blocks"](*args)
+    X, W, P, lam, mu = args
+    scale = ga.gn_term_scale(*split_rows(problem, X, W, P), lam, mu, W,
+                             layout=chip_smoke.gn_layout(problem, solve._internals["C_OFF"]))
+    assert chip_smoke.gn_excess(got, want, scale) <= 1.0

@@ -54,14 +54,19 @@ def _compile_cmd(out_dir: Path, stem: str, shape) -> tuple:
     header = _rewrite(header, r'asm volatile\("cp\.async\.(commit|wait)_group[^\n]*', "", 2)
     (out_dir / "riccati_common.cuh").write_text(header)
     source = (_build.CSRC / f"{stem}.cu").read_text()
+    # a source without the shared helpers (csrc/fk_walk.cu) includes the
+    # runtime itself
+    source = source.replace("#include <cuda_runtime.h>", f'#include "{SHIM}"')
     # each lane's workspace (and the general kernel's horizon) is dynamic
     # shared memory: the running block's buffer
-    source = _rewrite(source, re.escape("extern __shared__ float smem[];"),
-                      "float* smem = emu_dynamic_shared();", 1)
+    if "extern __shared__" in source:
+        source = _rewrite(source, re.escape("extern __shared__ float smem[];"),
+                          "float* smem = emu_dynamic_shared();", 1)
     source = _rewrite(source, r"(\w+(?:<[^<>;]*>)?)<<<(.*?)>>>\((.*?)\);",
                       r"emu_launch(\2, [&] { \1(\3); });")
     (out_dir / f"{stem}.cpp").write_text(source)
-    lib = out_dir / f"lib{stem}_{'_'.join(map(str, shape))}.so"
+    tag = _build.source_key(stem, shape)[:16] if stem == "fk_walk" else "_".join(map(str, shape))
+    lib = out_dir / f"lib{stem}_{tag}.so"
     cmd = ["g++", "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread", *_build.defines(stem, shape),
            "-o", str(lib), str(out_dir / f"{stem}.cpp")]
     return cmd, lib
