@@ -234,6 +234,7 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import contextlib
+import hashlib
 import json
 import os
 import subprocess
@@ -555,12 +556,13 @@ def kernel_device_ms(torch, fn, kernel_name, reps=20, windows=3):
     calls of ``fn``, over ``reps``. Unlike CUDA events around a call, this
     leaves out the host's launch path, which a kernel of tens of
     microseconds is shorter than. A window in which the profiler recorded
-    no device event at all (seen once in ~400 windows on an H100) is taken
-    again, up to ``windows`` times."""
+    no event of the kernel (no device event at all, seen once in ~400
+    windows on an H100, or other events but none of the kernel's, seen once
+    in ~100) is taken again, up to ``windows`` times."""
     fn()
     for _ in range(windows):
         _, total = profile_windows(torch, {kernel_name: lambda: [fn() for _ in range(reps)]}, [kernel_name])
-        if total["device_events"]:
+        if total[f"{kernel_name}_ms"] > 0:
             break
     ms = total[f"{kernel_name}_ms"] / reps
     check(ms > 0, f"the profiler saw no {kernel_name} launches")
@@ -591,7 +593,8 @@ def time_kernel_shapes(torch, rp, rb, plain=True):
     ``ms`` device time per launch (``torch.profiler``, 20 launches),
     ``call_ms`` CUDA events around one wrapper call, ``plain_ms`` the plain
     version (median of 5 calls; skipped with ``plain=False``), ``bound_ms`` from
-    ``sweep_bound``. Prints and returns one record per shape."""
+    ``sweep_bound``, ``digest`` of the sweep's outputs on these seeded
+    inputs. Prints and returns one record per shape."""
     a, b1, b2 = 0.05, 0.00125, 0.05  # panda's dt = 0.05 double integrator
 
     def cases():  # (module, label, inputs, keywords, dynamics), inputs made one shape at a time
@@ -620,7 +623,7 @@ def time_kernel_shapes(torch, rp, rb, plain=True):
         bound_ms, bound_by = sweep_bound(B, kw["N"], kw["nx"], kw["nw"], dyn)
         rec = {
             "kernel": name, "shape": label, "B": B, "N": kw["N"], "nx": kw["nx"], "nw": kw["nw"],
-            "dyn": dyn, "max_abs_err": err, "ms": kernel_device_ms(torch, call, kernel),
+            "dyn": dyn, "max_abs_err": err, "digest": digest((k, K, f)), "ms": kernel_device_ms(torch, call, kernel),
             "call_ms": time_ms(call, torch),
             "plain_ms": time_ms(lambda: reference(*args, **kw), torch, reps=5, warmup=1) if plain else None,
             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -799,8 +802,9 @@ EXPANSION_SHAPES = {
     "mobile panda rescue": ("mobilePanda", MOBILE_BATCH // 8),
 }
 #: ... and the shapes the FK walk is also timed at without the Jacobian
-#: (the line search's and the multiplier update's rows)
-FK_POSITION_SHAPES = ("panda phase 1", "mobile panda phase 1")
+#: (the line search's and the multiplier update's rows, the goal distance:
+#: at the panda's rescue tier most of the walk's launches)
+FK_POSITION_SHAPES = ("panda phase 1", "panda rescue", "group panda rescue", "mobile panda phase 1")
 #: the tolerances of the expansion's kernels against their plain versions:
 #: the walk 1e-5 absolute on P and J (f32, one sin/cos pair per joint); the
 #: assembly 1e-4 of each entry's own term scale (``gn_excess``: row sums in
@@ -913,6 +917,16 @@ def fk_bound(M, table, want_jac):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def digest(tensors):
+    """sha256 (first 16 hex digits) of the bytes of ``tensors`` (None
+    skipped), read to the host: equal digests, equal outputs bit for bit."""
+    h = hashlib.sha256()
+    for t in tensors:
+        if t is not None:
+            h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def gn_bound(B, N, layout):
     """(bound_ms, bound_by) of one assembly at (B, N): each input read once
     (rows, q Jacobian, weights, multipliers, the slack column, the lanes'
@@ -925,7 +939,8 @@ def gn_bound(B, N, layout):
     rq, ra = qr + qb + qc, ar + ab + ac
     words_in = rq + rq * nq + ra + qr + qb + ar + ab + qc + ac + ns
     words_out = nx + nw + nx * nx + nx * nw + nw * nw
-    pairs = int(layout.tables[3][-1]) + int(layout.tables[0][-1])
+    nnz = (layout.S != 0).sum(1).tolist()  # S_aff's non-zeros a row: k gradient and k (k + 1) / 2 upper terms
+    pairs = sum(k + k * (k + 1) // 2 for k in nnz)
     flops = 10 * (rq + ra) + 2 * rq * nq + 3 * rq * nq * (nq + 1) // 2 + 2 * pairs + (3 * qc * (nq + 2) if ns else 0)
     nbytes = 4 * (B * N * (words_in + words_out) + B + N * (qc + ac))
     t_bytes, t_ops = nbytes / HBM_BPS, B * N * flops / FP32_FLOPS
@@ -939,12 +954,34 @@ def time_expansion_shapes(torch, plain=True):
     CUDA tensors (``FK_ATOL``; ``gn_excess``, with live barriers near the
     clamp and away from it), then timed as
     the Riccati kernels are (``time_kernel_shapes``). The walk reads q in
-    place from states of width nx, as the solver's rows do. Prints and
+    place from states of width nx, as the solver's rows do. Each record
+    carries ``digest``, of the kernel's outputs on these seeded inputs (P and
+    J; the five blocks of both assemblies), so that two checkouts' kernels
+    can be held equal bit for bit (``chip_kernel_pairs.py``). Prints and
     returns one record per shape."""
     from robot_mpcs_tpu_torch.config import Setup
     from robot_mpcs_tpu_torch.models.problem import MpcProblem
     from robot_mpcs_tpu_torch.ops import fk_walk as fw
     from robot_mpcs_tpu_torch.ops import gn_assemble as ga
+
+    from robot_mpcs_tpu_torch.ops import _build
+    from robot_mpcs_tpu_torch.utils import aot
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def geometry(stem, problem, M, jac=True):
+        """(threads, blocks, shared bytes) of a block at M rows / items, from
+        this checkout's ``_build`` figures (None for a checkout without
+        them: ``chip_kernel_pairs.py`` times earlier checkouts too)."""
+        shape = dict(aot.expansion_kernels(problem))[stem]
+        if stem == "fk_walk" and hasattr(_build, "fk_rows_per_block"):
+            row = 4 * _build.fk_row_floats(shape, jac)
+            rows = _build.fk_rows_per_block(M, row, sms=sms)
+            return [rows, -(-M // rows), rows * row]
+        if stem == "gn_assemble" and hasattr(_build, "gn_grid"):
+            block = 4 * _build.gn_block_floats(shape, _build.stage_depth(stem, shape))
+            return [_build.GN_THREADS, _build.gn_grid(M, block, sms), block]
+        return None
 
     problems, records = {}, []
     for label, (robot, B) in EXPANSION_SHAPES.items():
@@ -965,8 +1002,9 @@ def time_expansion_shapes(torch, plain=True):
             check(err <= FK_ATOL, f"fk_walk differs from its plain version at {fk_label}: max abs err {err:.3e}")
             records.append(timed_record(torch, "fk_walk", "fk_walk_kernel", fk_label, B, d.N, err, None, call,
                                         plain_call if plain else None,
-                                        fk_bound(B * d.N, fw.walk_table(kin, links), jac)))
-        errs, excesses = [], []
+                                        fk_bound(B * d.N, fw.walk_table(kin, links), jac), digest(got),
+                                        geometry("fk_walk", problem, B * d.N, jac)))
+        errs, excesses, outputs = [], [], []
         for near_clamp in (True, False):  # the last, live barriers away from the clamp, is timed
             arrays, c_off = random_gn_inputs(problem, B, d.N, seed=B, near_clamp=near_clamp)
             inputs = [torch.as_tensor(a, device="cuda") for a in arrays]
@@ -983,19 +1021,24 @@ def time_expansion_shapes(torch, plain=True):
                   f"gn_assemble: lxx or lww not symmetric at {case}")
             errs.append(err)
             excesses.append(excess)
+            outputs += got
         records.append(timed_record(torch, "gn_assemble", "gn_assemble_kernel", label, B, d.N, max(errs),
                                     max(excesses) * GN_RTOL, call, plain_call if plain else None,
-                                    gn_bound(B, d.N, layout)))
+                                    gn_bound(B, d.N, layout), digest(outputs),
+                                    geometry("gn_assemble", problem, B * d.N)))
     return records
 
 
-def timed_record(torch, name, kernel, label, B, N, err, rel_err, call, plain_call, bound):
+def timed_record(torch, name, kernel, label, B, N, err, rel_err, call, plain_call, bound, out_digest=None,
+                 block=None):
     """One ``kernel_shape`` record: device ms per launch (``torch.profiler``),
-    call ms and plain ms (CUDA events), the bound; printed and returned."""
+    call ms and plain ms (CUDA events), the bound, the outputs' digest, the
+    launch's (threads, blocks, shared bytes) a block; printed and
+    returned."""
     rec = {"kernel": name, "shape": label, "B": B, "N": N, "max_abs_err": err, "max_rel_err": rel_err,
            "ms": kernel_device_ms(torch, call, kernel, reps=10), "call_ms": time_ms(call, torch),
            "plain_ms": time_ms(plain_call, torch, reps=5, warmup=1) if plain_call else None,
-           "bound_ms": bound[0], "bound_by": bound[1]}
+           "bound_ms": bound[0], "bound_by": bound[1], "digest": out_digest, "block": block}
     print(json.dumps({"kernel_shape": rec}), flush=True)
     return rec
 

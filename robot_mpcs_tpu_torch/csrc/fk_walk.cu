@@ -41,13 +41,28 @@
 // n = 7) 25.9 MB, 7.7 us at 3.35 TB/s, against ~1,400 flops a row counted
 // without the folds (one sin/cos pair per revolute joint), 111 MFLOP,
 // 1.7 us at the fp32 rate.
-// A thread keeps its nodes' rotations, its joints' origins and axes and the
-// links' positions in registers (~60 floats at the panda) and stores its
-// row directly: a warp's stores of one instruction are 3Ln floats apart,
-// so each touches 32 sectors, and L2 merges the row's sectors before they
-// reach memory.
+//
+// The design moves the data through shared memory and leaves the walk as it
+// was. A block of R rows (one thread each) first copies its rows' q into a
+// tile, consecutive threads on consecutive floats (4-byte cp.async: a row of
+// n floats in a state of width nx is not 16-byte aligned), and each thread
+// reads its q from there (row stride odd(n): no bank conflicts). The thread
+// walks its row in registers (its nodes' rotations, its joints' origins and
+// axes, the links' positions: ~60 floats at the panda) and writes P and J
+// into tiles laid out as the block's contiguous runs of P and J in device
+// memory; the block then stores each run with 16-byte vectors, consecutive
+// threads on consecutive addresses (a ragged last run ends in a scalar
+// tail). A thread that stored its 72 floats of J and P directly (the first
+// port) issued 72 warp stores 252 B apart, 32 sectors each: 112-118 us at
+// the panda's phase 1, 0.07 of the bound; staged, 10.0 us, 0.77 of it
+// (chip_kernel_pairs.py, both in turns on an H100 SXM at 700 W). R is 128
+// where the card's shared memory and the batch allow, halved down to a warp
+// while the grid would leave SMs without two blocks (the rescue tier's
+// 512 x 20 rows), and a multiple of 4, so that every block's runs start
+// 16-byte aligned. Below ~10,000 rows the launch, not the bytes, takes the
+// time (3.0 us at the rescue tier, 0.32 of the bound).
 
-#include <cuda_runtime.h>
+#include "riccati_common.cuh"
 
 #if !defined(FK_N) || !defined(FK_S) || !defined(FK_L) || !defined(FK_DIFFDRIVE) || \
     !defined(FK_NODE) || !defined(FK_PRE) || !defined(FK_AXIS) || !defined(FK_ZERO) ||  \
@@ -57,14 +72,18 @@
 
 namespace {
 
-constexpr int kNoInstantiation = -1;  // ops/_build.py NO_INSTANTIATION
-constexpr int kThreads = 128;
+using namespace riccati;
+
 constexpr int kFixed = 0, kRevolute = 1, kPrismatic = 2;
 
 constexpr int N = FK_N;              // configuration width
 constexpr int S = FK_S;              // nodes of the walk, base excluded
 constexpr int L = FK_L;              // links
 constexpr bool kDiffDrive = FK_DIFFDRIVE;
+// a row's floats in the block's tiles: P (3L), J (3Ln), q (row stride odd(n))
+constexpr int PW = 3 * L, JW = 3 * L * N, QS = odd(N);
+template <bool JAC>
+constexpr int kRowFloats = PW + (JAC ? JW : 0) + QS;
 
 // The tables' defines list their entries as FKV(value) (a define holds no
 // comma: nvcc would split the option there). Each is a constant in device
@@ -101,17 +120,13 @@ __device__ __forceinline__ void fma_term(float& acc, bool& any, float a, float b
   any = true;
 }
 
+// The walk of one row: its q at qs (shared memory), its P row (PW floats)
+// to Pt and, with JAC, its J row (JW floats) to Jt, in their tiles
 template <bool JAC>
-__global__ void __launch_bounds__(kThreads) fk_walk_kernel(const float* __restrict__ q,
-                                                            long long q_stride, int M,
-                                                            float* __restrict__ P,
-                                                            float* __restrict__ J) {
-  const int m = blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= M) return;
-  const float* qm = q + static_cast<long long>(m) * q_stride;
+__device__ __forceinline__ void walk_row(const float* qs, float* Pt, float* Jt) {
   float qv[N];
 #pragma unroll
-  for (int i = 0; i < N; ++i) qv[i] = qm[i];
+  for (int i = 0; i < N; ++i) qv[i] = qs[i];
 
   // R[k], p[k]: node k's rotation and translation after its joint; o[k],
   // w[k]: its joint's origin and world axis
@@ -230,15 +245,14 @@ __global__ void __launch_bounds__(kThreads) fk_walk_kernel(const float* __restri
     }
   }
 
-  const long long row = static_cast<long long>(m) * L;
 #pragma unroll
   for (int l = 0; l < L; ++l) {
     const int node = kLink[l];
-    float* Pl = P + (row + l) * 3;
+    float* Pl = Pt + l * 3;
 #pragma unroll
     for (int i = 0; i < 3; ++i) Pl[i] = p[node][i];
     if constexpr (JAC) {
-      float* Jl = J + (row + l) * 3 * N;
+      float* Jl = Jt + l * 3 * N;
 #pragma unroll
       for (int c = 0; c < N; ++c) {
         const int a = kCol[l * N + c];
@@ -274,9 +288,59 @@ __global__ void __launch_bounds__(kThreads) fk_walk_kernel(const float* __restri
   }
 }
 
+// One thread per row, R rows a block; shared memory: the P tile (R x PW),
+// the J tile (R x JW, with JAC), the q tile (R x QS)
+template <bool JAC>
+__global__ void __launch_bounds__(kBlockThreads) fk_walk_kernel(const float* __restrict__ q,
+                                                                 long long q_stride, int M,
+                                                                 float* __restrict__ P,
+                                                                 float* __restrict__ J) {
+  extern __shared__ float smem[];
+  const int rows = blockDim.x, t = threadIdx.x;
+  const long long m0 = static_cast<long long>(blockIdx.x) * rows;
+  const int here = M - m0 < rows ? static_cast<int>(M - m0) : rows;
+  float* tP = smem;
+  float* tJ = tP + rows * PW;
+  float* tq = tJ + (JAC ? rows * JW : 0);
+
+  // 1. the block's q rows, consecutive threads on consecutive floats
+  for (int e = t; e < here * N; e += rows) {
+    const int r = e / N, c = e - r * N;
+    cp_async4(tq + r * QS + c, q + (m0 + r) * q_stride + c);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // 2. each thread's walk, into the tiles
+  if (t < here) walk_row<JAC>(tq + t * QS, tP + t * PW, tJ + t * JW);
+  __syncthreads();
+
+  // 3. the block's runs of P and J
+  block_store(P + m0 * PW, tP, here * PW, t, rows);
+  if constexpr (JAC) block_store(J + m0 * JW, tJ, here * JW, t, rows);
+}
+
+// Rows per block: kBlockThreads, fewer where `limit` bytes of shared memory
+// hold fewer (a multiple of a warp, else of 4), halved down to a warp while
+// the grid would give the card's `sms` SMs fewer than two blocks each; 0
+// where not 4 rows fit
+inline int rows_per_block(int M, size_t row_bytes, int limit, int sms) {
+  const size_t fit = static_cast<size_t>(limit) / row_bytes;
+  int rows = fit >= kBlockThreads ? kBlockThreads : static_cast<int>(fit >= 32 ? fit / 32 * 32 : fit / 4 * 4);
+  while (rows > 32 && rows % 64 == 0 && ceil_div(M, rows) < 2 * sms) rows /= 2;
+  return rows;
+}
+
 template <bool JAC>
 int launch(const float* q, long long q_stride, int M, float* P, float* J, cudaStream_t stream) {
-  fk_walk_kernel<JAC><<<(M + kThreads - 1) / kThreads, kThreads, 0, stream>>>(q, q_stride, M, P, J);
+  static const int limit = dynamic_shared_limit(fk_walk_kernel<JAC>);
+  static const int sms = multiprocessor_count();
+  constexpr size_t row_bytes = kRowFloats<JAC> * sizeof(float);
+  const int rows = rows_per_block(M, row_bytes, limit, sms);
+  if (rows == 0) return kNoRoom;
+  const size_t bytes = rows * row_bytes;
+  fk_walk_kernel<JAC><<<ceil_div(M, rows), rows, bytes, stream>>>(q, q_stride, M, P, J);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -285,11 +349,18 @@ int launch(const float* q, long long q_stride, int M, float* P, float* J, cudaSt
 // Plain C entry point (loaded with ctypes). q: device pointer to M rows of n
 // floats, row r at q + r * q_stride (the last axis contiguous); P: (M, L, 3)
 // and, with want_jac, J: (M, L, 3, n), contiguous f32. Returns
-// cudaGetLastError() after the launch, or kNoInstantiation for an (n, L)
-// other than the chain this library was compiled for.
+// cudaGetLastError() after the launch, kNoInstantiation for an (n, L) other
+// than the chain this library was compiled for, or kNoRoom where not 4 rows'
+// tiles fit a block's shared memory.
 extern "C" int fk_walk_launch(const float* q, long long q_stride, int M, int n, int L_, float* P, float* J,
                               int want_jac, cudaStream_t stream) {
   if (n != N || L_ != L) return kNoInstantiation;
   if (M == 0) return 0;
   return want_jac ? launch<true>(q, q_stride, M, P, J, stream) : launch<false>(q, q_stride, M, P, J, stream);
+}
+
+// Bytes of shared memory one row takes in a block's tiles, with and without
+// J (ops/_build.py computes the same, and the tests hold the two equal)
+extern "C" int fk_walk_row_bytes(int want_jac) {
+  return (want_jac ? kRowFloats<true> : kRowFloats<false>) * static_cast<int>(sizeof(float));
 }

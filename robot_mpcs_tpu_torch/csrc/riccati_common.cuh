@@ -1,7 +1,9 @@
 // Device helpers shared by the two Riccati sweep kernels (riccati_packed.cu,
-// riccati_batched.cu): the thread-team geometry, 4-byte cp.async staging of a
-// lane's stage block, index maps that spread a triangle over a team, and the
-// LDL^T stage solve of one right-hand column.
+// riccati_batched.cu) and the split expansion's kernels (fk_walk.cu,
+// gn_assemble.cu): the thread-team geometry, 4-byte cp.async staging of a
+// lane's stage block, block-wide stores of a tile, the card's size, index
+// maps that spread a triangle over a team, and the LDL^T stage solve of one
+// right-hand column.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -57,6 +59,40 @@ inline int lanes_per_block(int T, size_t lane_bytes, size_t fixed, int limit) {
   if (fixed + lane_bytes > static_cast<size_t>(limit)) return 0;
   const size_t fit = (static_cast<size_t>(limit) - fixed) / lane_bytes;
   return fit < static_cast<size_t>(kBlockThreads / T) ? static_cast<int>(fit) : kBlockThreads / T;
+}
+
+// The card's streaming multiprocessors (132 on an H100 SXM).
+inline int multiprocessor_count() {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
+}
+
+// Blocks of `kernel` that one SM holds at once with `threads` threads and
+// `bytes` of dynamic shared memory each (at least 1).
+template <class Kernel>
+int resident_blocks(Kernel kernel, int threads, size_t bytes) {
+  int blocks = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, bytes);
+  return blocks > 0 ? blocks : 1;
+}
+
+// The block's `threads` threads write `count` floats of a tile in shared
+// memory to a contiguous run in device memory, consecutive threads on
+// consecutive addresses: as 16-byte vectors where both ends are 16-byte
+// aligned (then a scalar tail of count % 4), else float by float.
+__device__ __forceinline__ void block_store(float* __restrict__ dst, const float* __restrict__ src, int count,
+                                            int t, int threads) {
+  int done = 0;
+  if (((reinterpret_cast<size_t>(dst) | reinterpret_cast<size_t>(src)) & 15) == 0) {
+    const int vectors = count / 4;
+#pragma unroll 4
+    for (int v = t; v < vectors; v += threads)
+      reinterpret_cast<float4*>(dst)[v] = reinterpret_cast<const float4*>(src)[v];
+    done = 4 * vectors;
+  }
+  for (int e = done + t; e < count; e += threads) dst[e] = src[e];
 }
 
 // Thread t of a team of T copies floats t, t + T, ... of a contiguous block

@@ -56,7 +56,9 @@ NVCC_FLAGS = [
 ]
 #: what a launcher returns for a shape other than its library's
 NO_INSTANTIATION = -1
-#: ... and for a shape of which not one lane fits a block's shared memory
+#: ... and for a shape of which not one lane (a Riccati sweep), the block
+#: (the Gauss-Newton assembly) or 4 rows (the FK walk) fit a block's shared
+#: memory
 NO_ROOM = -2
 #: the shape fields each source is compiled for, in the order of its
 #: launcher's arguments (``-D<PREFIX>_<FIELD>``; ``fk_walk``'s one field is
@@ -78,6 +80,8 @@ COUNTER_SLOTS = 256
 #: the shared memory a block may have on an sm_90 card (H100, H200), the
 #: opt-in maximum: the libraries are built for sm_90a only
 SM90_SHARED_OPTIN = 232448
+#: ... its shared memory an SM, and what a block reserves of it
+SM90_SHARED_PER_SM, SM90_RESERVED_PER_BLOCK = 233472, 1024
 
 _libs: Dict[Tuple[str, tuple], ctypes.CDLL] = {}
 #: launches counted on the host, {(kernel name, batch): n}
@@ -189,42 +193,97 @@ def team_size(nx: int) -> int:
     return 16 if nx <= 8 else 32
 
 
-#: threads per (lane, stage) item of the Gauss-Newton assembly: a warp
-GN_TEAM = 32
+#: (lane, stage) items of a group of the Gauss-Newton assembly: one per lane
+#: of a warp (``csrc/gn_assemble.cu`` ``G``); threads of its blocks: 8 warps
+GN_ITEMS, GN_THREADS = 32, 256
+
+
+def _odd(x: int) -> int:
+    """An odd row stride (``riccati_common.cuh`` ``odd``)."""
+    return x | 1
 
 
 def lane_floats(stem: str, shape, depth: int) -> int:
-    """Floats of shared memory one lane of ``csrc/<stem>.cu`` takes with
-    ``depth`` stage buffers: the ``PackedLayout`` / ``GeneralLayout`` of the
-    source, or one (lane, stage) item's ``GnLayout`` (its exported
+    """Floats of shared memory one lane of a Riccati sweep,
+    ``csrc/<stem>.cu``, takes with ``depth`` stage buffers: the
+    ``PackedLayout`` / ``GeneralLayout`` of the source (its exported
     ``<stem>_lane_bytes`` is held equal by the tests)."""
-
-    def odd(x):  # an odd row stride (riccati_common.cuh)
-        return x | 1
-
-    if stem == "gn_assemble":
-        qr, qb, qc, ar, ab, ac, nq, nx, nw, _ = shape
-        rq, ra, nv = qr + qb + qc, ar + ab + ac, nx + nw
-        return rq * nq + 2 * rq + 2 * ra + nv + nv * odd(nv)
     nx, nw = shape[0], shape[1]
     m = 1 + nx
     if stem == "riccati_packed":
         stage = nx + nw + nx * nx + nx * nw + nw * nw
-        return depth * stage + nx * odd(nx) + nx + nx * odd(nw) + nw * nw + nw * m
+        return depth * stage + nx * _odd(nx) + nx + nx * _odd(nw) + nw * nw + nw * m
     nv = nx + nw
     stage = nx + nw + 2 * nx * nx + 2 * nx * nw + nw * nw
-    return depth * stage + nx * odd(nx) + nx + (nx + nv) * odd(nv) + nv + 2 * nw * m
+    return depth * stage + nx * _odd(nx) + nx + (nx + nv) * _odd(nv) + nv + 2 * nw * m
+
+
+def gn_terms_max(shape) -> int:
+    """The (row, coefficient) terms the assembly's table holds: 5 per affine
+    row (a row of ``S_aff`` with k <= 2 non-zeros feeds k gradient and
+    k (k + 1) / 2 upper entries)."""
+    return 5 * sum(tuple(shape)[3:6])
+
+
+def gn_block_floats(shape, depth: int) -> int:
+    """Floats of shared memory a block of the Gauss-Newton assembly takes
+    with ``depth`` stage buffers (``csrc/gn_assemble.cu`` ``Lay``): the
+    buffers of ``GN_ITEMS`` item records (the rows' values and second
+    scalars, the q Jacobian, the slack; odd stride), the output tile, the
+    schedule (4 words an entry) and the terms table (2 words a term). The
+    source's exported ``gn_assemble_block_bytes`` is held equal by the
+    tests."""
+    qr, qb, qc, ar, ab, ac, nq, nx, nw, ns = shape
+    rq, r, nv = qr + qb + qc, qr + qb + qc + ar + ab + ac, nx + nw
+    record = _odd(2 * r + rq * nq + ns)
+    out = nx + nw + nx * nx + nx * nw + nw * nw
+    return GN_ITEMS * (depth * record + out) + 4 * (nv + nv * (nv + 1) // 2) + 2 * gn_terms_max(shape)
+
+
+def fk_rows_per_block(M: int, row_bytes: int, optin: int = SM90_SHARED_OPTIN, sms: int = 132) -> int:
+    """Rows (threads) per block of the FK walk over ``M`` rows, as
+    ``csrc/fk_walk.cu`` ``rows_per_block`` chooses them: 128, fewer where
+    ``optin`` bytes hold fewer rows of ``row_bytes`` (a multiple of 32, else
+    of 4), halved down to 32 while the grid would give the card's ``sms``
+    SMs fewer than two blocks each; 0 where not 4 rows fit."""
+    fit = optin // row_bytes
+    rows = 128 if fit >= 128 else (fit // 32 * 32 if fit >= 32 else fit // 4 * 4)
+    while rows > 32 and rows % 64 == 0 and -(-M // rows) < 2 * sms:
+        rows //= 2
+    return rows
+
+
+def gn_grid(M: int, block_bytes: int, sms: int = 132) -> int:
+    """Persistent blocks of the Gauss-Newton assembly over ``M`` items, as
+    its launcher chooses them: as many as the card's ``sms`` SMs hold at
+    once (by threads and shared memory; the kernel's launch bounds keep two
+    blocks' registers), fewer where the groups of ``GN_ITEMS`` items take
+    fewer rounds of them."""
+    resident = max(1, min(2048 // GN_THREADS, SM90_SHARED_PER_SM // (block_bytes + SM90_RESERVED_PER_BLOCK)))
+    groups = -(-M // GN_ITEMS)
+    return -(-groups // -(-groups // (sms * resident)))
+
+
+def fk_row_floats(shape, jac: bool) -> int:
+    """Floats of shared memory one row of the FK walk takes in a block's
+    tiles (``csrc/fk_walk.cu`` ``kRowFloats``): P (3L), J (3Ln, ``jac``) and
+    q (stride odd(n)). The source's exported ``fk_walk_row_bytes`` is held
+    equal by the tests."""
+    defines = dict(tok.split("=", 1) for tok in tuple(shape)[0].split(" "))
+    n, L = int(defines["FK_N"]), int(defines["FK_L"])
+    return 3 * L + (3 * L * n if jac else 0) + _odd(n)
 
 
 def stage_depth(stem: str, shape) -> int:
     """Stage buffers per lane. The structured sweep: 2 (a deeper ring
     measured no faster). The general one: 3 where a block of 128 / T lanes
     then stays within 48 KB (faster than 2 at boxer's shapes), else 2. The
-    Gauss-Newton assembly has no ring: 1."""
+    Gauss-Newton assembly's groups: 2 where a block with two fits the card's
+    shared memory, else 1."""
     if stem == "riccati_packed":
         return 2
     if stem == "gn_assemble":
-        return 1
+        return 2 if 4 * gn_block_floats(shape, 2) <= SM90_SHARED_OPTIN else 1
     lanes = 128 // team_size(shape[0])
     return 3 if lanes * lane_floats(stem, shape, 3) * 4 <= 48 * 1024 else 2
 
@@ -268,22 +327,30 @@ def defines(stem: str, shape) -> List[str]:
     if stem == "fk_walk":
         return [f"-D{token}" for token in shape[0].split(" ")]
     values = dict(zip(SHAPE_FIELDS[stem], shape))
-    values["t"] = GN_TEAM if stem == "gn_assemble" else team_size(shape[0])
-    if stem != "gn_assemble":
+    if stem == "gn_assemble":
+        values["d"] = stage_depth(stem, shape)
+    else:
+        values["t"] = team_size(shape[0])
         values["depth"] = stage_depth(stem, shape)
     return [f"-D{DEFINE_PREFIX[stem]}_{k.upper()}={v}" for k, v in values.items()]
 
 
 def check_fits(stem: str, shape) -> None:
-    """Raise unless one lane's shared memory at ``shape`` fits a block of an
-    sm_90 card."""
-    if stem not in DEFINE_PREFIX:  # no shared memory
+    """Raise unless one lane's shared memory at ``shape`` (a Riccati sweep),
+    the block's (the Gauss-Newton assembly) or 4 rows' (the FK walk, with
+    its Jacobian) fits a block of an sm_90 card."""
+    if stem == "graph_cond":  # no shared memory
         return
-    need = 4 * lane_floats(stem, shape, stage_depth(stem, shape))
+    if stem == "gn_assemble":
+        need, unit = 4 * gn_block_floats(shape, stage_depth(stem, shape)), "a block"
+    elif stem == "fk_walk":
+        need, unit = 16 * fk_row_floats(shape, True), "4 rows"
+    else:
+        need, unit = 4 * lane_floats(stem, shape, stage_depth(stem, shape)), "one lane"
     limit = SM90_SHARED_OPTIN
     if need > limit:
         raise ValueError(
-            f"csrc/{stem}.cu: one lane at {SHAPE_FIELDS[stem]} = {tuple(shape)} needs {need} bytes "
+            f"csrc/{stem}.cu: {unit} at {_shape_text(stem, shape)} needs {need} bytes "
             f"of shared memory, more than the {limit} a block may have{_remedy(stem)}"
         )
 
@@ -440,9 +507,10 @@ def raise_for_status(op: str, err: int, stem: str, shape) -> None:
             f"for another shape"
         )
     if err == NO_ROOM:
+        unit = {"gn_assemble": "the block", "fk_walk": "4 rows"}.get(stem, "one lane")
         raise ValueError(
-            f"{op}: not one lane at {_shape_text(stem, shape)} fits this card's "
-            f"shared memory{_remedy(stem)}"
+            f"{op}: the shared memory of {unit} at {_shape_text(stem, shape)} does not fit "
+            f"this card's{_remedy(stem)}"
         )
     if err != 0:
         raise RuntimeError(f"{op}: kernel launch failed (cudaError {err})")

@@ -8,7 +8,8 @@ and, on request, their geometric Jacobians ``J (..., L, 3, n)``, from one
 walk of the chains' shared prefixes.
 
 * On a CUDA tensor, ``fk_walk`` launches the hand-written kernel of
-  ``csrc/fk_walk.cu`` (one thread per row of ``q``; see the note at the top
+  ``csrc/fk_walk.cu`` (one thread per row of ``q``, its q and its output
+  staged through shared memory; see the note at the top
   of that file), compiled at its first use for the robot's chain and the
   link set (``walk_table``: the chain's constants as ``-D`` defines, so
   that the compiler folds the walk as the JAX rule folds it) and loaded by

@@ -11,10 +11,11 @@ Riccati blocks ``(lx, lw, lxx, lxw, lww)`` of the augmented-Lagrangian
 Gauss-Newton model at every (lane, stage).
 
 * On a CUDA tensor, ``gn_assemble`` launches the hand-written kernel of
-  ``csrc/gn_assemble.cu`` (a warp per (lane, stage); see the note at the top
-  of that file), compiled for the problem's segment sizes at its first use
-  and loaded by ``ops/_build.py``. A missing ``nvcc``, a failed build or a
-  shape whose item does not fit a block's shared memory raises; there is no
+  ``csrc/gn_assemble.cu`` (a warp's 32 lanes on 32 (lane, stage) items, the
+  block's warps on their entries; see the note at the top of that file),
+  compiled for the problem's segment sizes at its first use and loaded by
+  ``ops/_build.py``. A missing ``nvcc``, a failed build or a shape whose
+  block does not fit the card's shared memory raises; there is no
   fallback.
 * On a CPU tensor it runs ``gn_assemble_reference``, the plain batched
   PyTorch assembly (two products against ``S_aff`` and its row outer
@@ -23,7 +24,8 @@ Gauss-Newton model at every (lane, stage).
 
 ``GnLayout`` holds what both need, made once per solver: the segment sizes,
 ``S_aff`` for the plain version and, for the kernel, its non-zeros (the JAX
-rule's ``_S_nz``) re-indexed by the output entry they feed.
+rule's ``_S_nz``) re-indexed by the output entry they feed, in the kernel's
+static entry schedule (``entry_schedule``).
 """
 
 from __future__ import annotations
@@ -90,12 +92,78 @@ def entry_tables(S_aff: np.ndarray):
     return csr(grad) + csr(pairs)
 
 
+#: the kinds of schedule entries (``csrc/gn_assemble.cu`` ``Kind``): besides
+#: its CSR terms, a gradient entry i < n_q takes the q rows, i = nx the slack
+#: column's; an upper entry (i, j) with j < n_q the q rows' products, (i <
+#: n_q, nx) and (nx, nx) the slack column's terms
+ENTRY_KINDS = ("grad_aff", "grad_q", "grad_slack", "hess_aff", "hess_q", "hess_slack_q", "hess_slack")
+
+
+def entry_schedule(S_aff: np.ndarray, *, nx: int, n_q: int, ns: int, qc: int):
+    """The kernel's static entry schedule and its terms, from ``entry_tables``:
+    ``sched (n_live, 4)`` int32, one row per live entry (of the nv gradient
+    entries and the nv (nv + 1) / 2 upper entries of H, those with a term:
+    the rest are 0, which the kernel writes once per block), and ``terms
+    (n_terms, 2)`` int32, each (affine row, coefficient's f32 bits), an
+    entry's terms contiguous and in their CSR order. A row of ``sched``:
+    ``begin | count << 16`` (its terms), ``kind | i << 8 | j << 16``
+    (``ENTRY_KINDS``), and the one or two places it is written to, each
+    ``block << 16 | offset`` (block 0..4 = lx, lw, lxx, lxw, lww; the offset
+    in one item's block; -1 for none: a diagonal entry of lxx or lww, an
+    entry of lxw or of the gradient). The rows are ordered by kind, then by
+    their terms' count: the kernel's warps take rows w, w + 8, ..., so each
+    takes about an eighth of each kind, and the 32 lanes of a warp (32
+    items) run the same row."""
+    grad_ptr, grad_row, grad_coef, pair_ptr, pair_row, pair_coef = entry_tables(S_aff)
+    nv = S_aff.shape[1]
+    nw = nv - nx
+    slack = bool(ns and qc)
+    kinds = {name: k for k, name in enumerate(ENTRY_KINDS)}
+
+    def place(i, j):
+        if j < nx:
+            return 2 << 16 | (i * nx + j)
+        if i < nx:
+            return 3 << 16 | (i * nw + j - nx)
+        return 4 << 16 | ((i - nx) * nw + j - nx)
+
+    rows = []  # (kind, count, begin, i, j, place, mirror)
+    for i in range(nv):
+        kind = "grad_q" if i < n_q else ("grad_slack" if slack and i == nx else "grad_aff")
+        out = (0 << 16 | i) if i < nx else (1 << 16 | (i - nx))
+        rows.append((kinds[kind], int(grad_ptr[i + 1] - grad_ptr[i]), int(grad_ptr[i]), i, i, out, -1))
+    n_grad = int(grad_ptr[-1])
+    upper = [(i, j) for i in range(nv) for j in range(i, nv)]
+    for u, (i, j) in enumerate(upper):
+        if j < n_q:
+            kind = "hess_q"
+        elif slack and j == nx and i < n_q:
+            kind = "hess_slack_q"
+        elif slack and i == j == nx:
+            kind = "hess_slack"
+        else:
+            kind = "hess_aff"
+        mirror = place(j, i) if i != j and (j < nx or i >= nx) else -1
+        rows.append((kinds[kind], int(pair_ptr[u + 1] - pair_ptr[u]), n_grad + int(pair_ptr[u]), i, j,
+                     place(i, j), mirror))
+    # an affine-only entry with no term is 0 in every item: not scheduled
+    affine_only = (kinds["grad_aff"], kinds["hess_aff"])
+    rows = sorted((r for r in rows if r[1] or r[0] not in affine_only), key=lambda r: (r[0], r[1]))
+    sched = np.asarray([(begin | count << 16, kind | i << 8 | j << 16, out, mirror)
+                        for kind, count, begin, i, j, out, mirror in rows], np.int32).reshape(-1, 4)
+    coefs = np.concatenate([grad_coef, pair_coef]).astype(np.float32)
+    terms = np.stack([np.concatenate([grad_row, pair_row]).astype(np.int32), coefs.view(np.int32)], 1)
+    return sched, terms.reshape(-1, 2)
+
+
 class GnLayout:
     """The split expansion's constants for one solver on ``device``: the row
     segments ``q_seg = (qr, qb, qc)``, ``aff_seg = (ar, ab, ac)``, ``nx``,
     ``ns``, ``nw``, ``n_q``, ``S_aff`` (and its row outer products) for the
-    plain version, ``entry_tables`` for the kernel, and ``c_off (N, n_con)``,
-    the stage-0 pin's offsets. Made once, before any capture."""
+    plain version, ``entry_schedule``'s tables for the kernel (``tables``:
+    the schedule of ``n_live`` rows and its ``n_terms`` terms), and ``c_off
+    (N, n_con)``, the stage-0 pin's offsets. Made once, before any
+    capture."""
 
     def __init__(self, q_seg, aff_seg, S_aff, *, nx: int, ns: int, n_q: int, c_off: torch.Tensor):
         self.q_seg, self.aff_seg = tuple(q_seg), tuple(aff_seg)
@@ -112,7 +180,9 @@ class GnLayout:
             np.einsum("ki,kj->kij", S_np, S_np).reshape(n_arows, self.nv * self.nv), **f32
         )
         self.upper = torch.ones((self.nv, self.nv), dtype=torch.bool, device=dev).triu()
-        self.tables = tuple(torch.as_tensor(t, device=dev) for t in entry_tables(S_np))
+        sched, terms = entry_schedule(S_np, nx=nx, n_q=n_q, ns=ns, qc=self.q_seg[2])
+        self.n_live, self.n_terms = sched.shape[0], terms.shape[0]
+        self.tables = tuple(torch.as_tensor(t, device=dev) for t in (sched, terms))
 
     @property
     def shape(self) -> Tuple[int, ...]:
@@ -199,7 +269,8 @@ def build_kernel(shape) -> ctypes.CDLL:
     library for ``shape`` (``GnLayout.shape``)."""
     lib = _build.load_library(STEM, shape)
     fn = lib.gn_assemble_launch
-    fn.argtypes = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+                   + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
@@ -235,11 +306,15 @@ def gn_assemble(vq, Jq, va, wrq, wbq, wra, wba, lam, mu, W, *, layout: GnLayout)
             torch.empty((Bsz, N, nw, nw), **f32))
     if Bsz == 0 or N == 0:
         return outs
+    if layout.n_terms > _build.gn_terms_max(layout.shape):
+        raise ValueError(f"gn_assemble: S_aff's {layout.n_terms} terms pass the kernel's table of "
+                         f"{_build.gn_terms_max(layout.shape)} (5 a row: at most two non-zeros a row)")
     lib = build_kernel(layout.shape)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.gn_assemble_launch(
-            *(t.data_ptr() for t in ins), *(t.data_ptr() for t in layout.tables),
+            *(t.data_ptr() for t in ins), layout.tables[0].data_ptr(), layout.n_live,
+            layout.tables[1].data_ptr(), layout.n_terms,
             *(t.data_ptr() for t in outs), Bsz, N, *layout.shape, stream,
         )
     _build.raise_for_status("gn_assemble", err, STEM, layout.shape)

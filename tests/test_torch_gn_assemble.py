@@ -184,6 +184,52 @@ def test_entry_tables_hold_s_aff():
     assert pair_ptr[-1] < 4 * S.shape[0]  # a handful of entries, not an (n_arows x nv^2) product
 
 
+@pytest.mark.parametrize("robot", ["panda", "mobilePanda", "pandaSlack", "pointRobotSlack"])
+def test_entry_schedule_rebuilds_the_assembly(robot):
+    """The kernel's static schedule (``entry_schedule``), replayed in float64
+    as the kernel reads it (each live entry: its terms, then its kind's q or
+    slack part, written to its one or two places; every other entry 0),
+    rebuilds the plain assembly of random row coefficients; each live entry
+    appears once, kinds together, and the structurally zero entries (no
+    term, no q or slack part) are left out."""
+    tp = MpcProblem(Setup.from_dict(SETUPS[robot]()))
+    layout = gn_layout(tp, torch.zeros((1, tp.n_con)))
+    qr, qb, qc = layout.q_seg
+    rq, ra = qr + qb + qc, sum(layout.aff_seg)
+    nx, nw, nq = layout.nx, layout.nw, layout.n_q
+    sched, terms = (t.numpy() for t in layout.tables)
+    assert (sched.shape[0], terms.shape[0]) == (layout.n_live, layout.n_terms)
+    rng = np.random.default_rng(1)
+    gq, hq, g_a, h_a = (rng.normal(size=k) for k in (rq, rq, ra, ra))
+    Jq = rng.normal(size=(rq, nq))
+    blocks = [np.zeros(k) for k in (nx, nw, nx * nx, nx * nw, nw * nw)]
+    kinds, seen = sched[:, 1] & 0xFF, set()
+    assert (np.diff(kinds) >= 0).all()
+    coefs = terms[:, 1].astype(np.int32).view(np.float32)
+    for (span, meta, place, mirror), kind in zip(sched, kinds):
+        i, j = (meta >> 8) & 0xFF, meta >> 16
+        assert (kind < 3, i, j) not in seen
+        seen.add((kind < 3, i, j))
+        rows = (g_a if kind < 3 else h_a)
+        begin, count = span & 0xFFFF, span >> 16
+        acc = sum(float(coefs[p]) * rows[terms[p, 0]] for p in range(begin, begin + count))
+        con = range(qr + qb, rq)
+        part = {1: lambda: sum(Jq[r, i] * gq[r] for r in range(rq)), 2: lambda: sum(gq[r] for r in con),
+                4: lambda: sum(hq[r] * Jq[r, i] * Jq[r, j] for r in range(rq)),
+                5: lambda: sum(hq[r] * Jq[r, i] for r in con), 6: lambda: sum(hq[r] for r in con)}
+        acc += part[int(kind)]() if int(kind) in part else 0.0
+        for code in (place, mirror):
+            if code >= 0:
+                blocks[code >> 16][code & 0xFFFF] = acc
+    as_t = [torch.as_tensor(a).reshape(1, 1, -1) for a in (gq, hq, g_a, h_a)]
+    want = ga._assemble(*as_t, torch.as_tensor(Jq).reshape(1, 1, rq, nq), layout.S.double(),
+                        layout.S_outer.double(), layout)
+    for got, w in zip(blocks, want):
+        np.testing.assert_allclose(got, w.reshape(-1).numpy(), rtol=1e-12, atol=1e-12)
+    nv = nx + nw
+    assert layout.n_live < nv + nv * (nv + 1) // 2  # the zero entries are left out
+
+
 def test_wrapper_dispatch():
     """A CPU tensor takes the plain version, counting no launch; another
     device raises."""
